@@ -9,7 +9,7 @@ reference and nothing here imports it or JAX.
                    caller asks for the CPU.
 - ``models``     — the utilization forecaster (``nn.Module``, explicit
                    Adam fit, warm starts) and its fused inference kernel.
-- ``kernels``    — hand-written CUDA C++ for ``sm_90a`` and its builder.
+- ``kernels``    — hand-written CUDA C++ for ``sm_90a`` and its build step.
 - ``transport``  — the ``Transport`` protocol and ``MockTransport``.
 - ``fleet``      — deterministic TPU fleet fixtures.
 - ``metrics``    — Prometheus client: discovery, batched instant queries,

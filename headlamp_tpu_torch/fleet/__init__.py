@@ -2,7 +2,6 @@
 
 from .fixtures import (  # noqa: F401
     FIXTURE_NOW_EPOCH,
-    FIXTURE_NOW_ISO,
     fleet_large,
     fleet_transport,
     fleet_v5e4,

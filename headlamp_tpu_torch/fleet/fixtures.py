@@ -19,7 +19,6 @@ from ..domain.constants import (
     GKE_TPU_ACCELERATOR_LABEL,
     GKE_TPU_TOPOLOGY_LABEL,
     GKE_TPU_WORKER_ID_LABEL,
-    HEADLAMP_CLUSTER_LABEL,
     TPU_PLUGIN_NAMESPACE,
     TPU_RESOURCE,
 )
@@ -27,7 +26,6 @@ from ..transport.api_proxy import MockTransport
 
 #: Fixed "now" for deterministic ages: 2026-07-29T00:00:00Z.
 FIXTURE_NOW_EPOCH = 1785283200.0
-FIXTURE_NOW_ISO = "2026-07-29T00:00:00Z"
 
 
 def _ts(age_seconds: int) -> str:
@@ -40,7 +38,7 @@ def _ts(age_seconds: int) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Object builders
+# Objects
 # ---------------------------------------------------------------------------
 
 def make_tpu_node(
@@ -54,7 +52,6 @@ def make_tpu_node(
     worker_id: int | None = None,
     age_seconds: int = 3600 * 24,
     uid: str | None = None,
-    cluster: str | None = None,
 ) -> dict[str, Any]:
     labels: dict[str, str] = {GKE_TPU_ACCELERATOR_LABEL: accelerator}
     if topology:
@@ -63,8 +60,6 @@ def make_tpu_node(
         labels[GKE_NODEPOOL_LABEL] = pool
     if worker_id is not None:
         labels[GKE_TPU_WORKER_ID_LABEL] = str(worker_id)
-    if cluster is not None:
-        labels[HEADLAMP_CLUSTER_LABEL] = cluster
     return {
         "apiVersion": "v1",
         "kind": "Node",
@@ -166,18 +161,13 @@ def make_tpu_pod(
 def make_plugin_pod(
     name: str,
     *,
-    provider: str = "tpu",
     node: str | None = None,
     ready: bool = True,
     restarts: int = 0,
     age_seconds: int = 3600 * 48,
 ) -> dict[str, Any]:
-    if provider == "tpu":
-        labels = {"k8s-app": "tpu-device-plugin"}
-        namespace = TPU_PLUGIN_NAMESPACE
-    else:
-        labels = {"app": "intel-gpu-plugin"}
-        namespace = "inteldeviceplugins-system"
+    labels = {"k8s-app": "tpu-device-plugin"}
+    namespace = TPU_PLUGIN_NAMESPACE
     return {
         "apiVersion": "v1",
         "kind": "Pod",

@@ -74,7 +74,7 @@ def build(name: str) -> BuildInfo:
     if library.is_file():
         return BuildInfo(library, 0.0, True, "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Build under a private name and rename: concurrent builders of the
+    # Build under a private name and rename: concurrent builds of the
     # same source never load a half-written library.
     partial = out_dir / f".lib{name}.{os.getpid()}.{threading.get_ident()}.so"
     t0 = time.perf_counter()

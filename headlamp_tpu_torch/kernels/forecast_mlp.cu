@@ -13,14 +13,19 @@
 // What bounds it: at the forecaster's widths (32 -> 128 -> 128 -> 8) a
 // row costs 43,008 FLOP and 160 bytes of x and out, so even 16k rows are
 // about 0.7 GFLOP and 2.6 MB: well under a microsecond of tensor-core or
-// HBM time on an H100. The kernel is bound by launch latency and by
-// staging the weights, not by the card's peaks. The design keeps every
-// intermediate on chip, as the TPU kernel kept it in VMEM: each block
-// stages W1, W2 and W3 once as bf16 in shared memory, then walks 64-row
-// tiles (grid-stride) with the activation tile in shared memory, so
-// device memory sees x read once and out written once. The TPU's
-// 128-lane padding is not carried over: the kernel takes the true
-// widths and masks the ragged tail tile.
+// HBM time on an H100. This simple kernel is bound instead by the time
+// one block takes to work through its tile: per k step each warp runs
+// 12 shared-memory loads for 32 FMAs, and 8 warps per block hide little
+// of their latency. Blocks run in parallel, so the time is nearly flat
+// in the batch until the tiles outnumber the resident blocks
+// (chip_smoke.py times it). Tensor-core fragments would cut the loads
+// per FMA; that is later work. The design keeps every intermediate on
+// chip, as the TPU kernel kept it in VMEM: each block stages W1, W2 and
+// W3 once as bf16 in shared memory, then walks 64-row tiles
+// (grid-stride) with the activation tile in shared memory, so device
+// memory sees x read once and out written once. The TPU's 128-lane
+// padding is not carried over: the kernel takes the true widths and
+// masks the ragged tail tile.
 //
 // Work layout: 256 threads = 8 warps; warp w owns tile rows 8w..8w+7,
 // lane l owns output columns l, l+32, l+64, l+96 (those below N). Each

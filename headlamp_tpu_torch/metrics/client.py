@@ -290,13 +290,6 @@ class TpuMetricsSnapshot:
     #: (SURVEY.md §5 tracing carry-over).
     fetch_ms: float = 0.0
 
-    @property
-    def by_node(self) -> dict[str, list[TpuChipMetrics]]:
-        out: dict[str, list[TpuChipMetrics]] = {}
-        for chip in self.chips:
-            out.setdefault(chip.node, []).append(chip)
-        return out
-
 
 # ---------------------------------------------------------------------------
 # Fetch + join
@@ -433,14 +426,11 @@ def fetch_tpu_metrics(
     timeout_s: float = 2.0,
     clock: Callable[[], float] = time.time,
     prometheus: tuple[str, str] | None = None,
-    batched: bool = True,
 ) -> TpuMetricsSnapshot | None:
     """Discover Prometheus (unless ``prometheus`` pins it; cached per
     transport otherwise), query all logical-metric candidates plus the
-    node map — as two matcher-joined batched queries by default (ADR-015), or one request
-    per candidate with ``batched=False`` (the escape hatch and the
-    parity baseline) — and join into per-chip rows. None when no
-    Prometheus answers."""
+    node map as matcher-joined batches, and join into per-chip rows.
+    None when no Prometheus answers."""
     timer = FetchTimer(clock)
     found = prometheus or resolve_prometheus(transport, timeout_s)
     if found is None:
@@ -461,17 +451,13 @@ def fetch_tpu_metrics(
             return []
         return _vector_result(data)
 
-    # Every candidate of every logical metric plus the node map —
-    # batched into matcher-joined queries by default (two requests
-    # instead of sixteen), or one request per candidate. Candidate
-    # order still decides which result is used.
+    # Every candidate of every logical metric plus the node map,
+    # batched into matcher-joined queries (two requests instead of
+    # sixteen). Candidate order still decides which result is used.
     queries: list[str] = [NODE_MAP_QUERY]
     for candidates in LOGICAL_METRICS.values():
         queries.extend(candidates)
-    if batched:
-        results = _fanout_batched(run_query, queries)
-    else:
-        results = {q: run_query(q) for q in queries}
+    results = _fanout_batched(run_query, queries)
 
     if issued and len(transport_failures) == len(issued):
         # Every query actually issued (batched AND the per-metric

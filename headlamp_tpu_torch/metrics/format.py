@@ -25,13 +25,6 @@ def format_percent(fraction: float | None, digits: int = 1) -> str:
     return f"{pct:.{digits}f}%"
 
 
-def normalize_fraction(value: float | None) -> float | None:
-    """Scale-tolerant 0-1 normalization (0-100 inputs divided down)."""
-    if value is None:
-        return None
-    return value / 100 if value > 1.5 else value
-
-
 _BYTE_UNITS = ("B", "KiB", "MiB", "GiB", "TiB", "PiB")
 
 

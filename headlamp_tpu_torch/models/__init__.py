@@ -15,7 +15,6 @@ from .forecast import (
     WarmState,
     fit_and_forecast_incremental,
     fit_and_forecast_with_dispatch,
-    forecast_next_with_dispatch,
     forward,
     init_params,
     loss_fn,
@@ -31,7 +30,6 @@ __all__ = [
     "WarmState",
     "fit_and_forecast_incremental",
     "fit_and_forecast_with_dispatch",
-    "forecast_next_with_dispatch",
     "forward",
     "init_params",
     "loss_fn",

@@ -257,12 +257,8 @@ class InferenceDispatch(NamedTuple):
     carried_from_generation: int | None = None
     #: Why a warm refinement was thrown away for a cold refit.
     warm_demotion_reason: str | None = None
-    #: What the fit trained on; stamped by the service layer.
+    #: What the fit trained on: the port has only the live range query.
     data_source: str = "live-window"
-
-    @property
-    def used_kernel(self) -> bool:
-        return self.path in ("cuda", "cuda-warm")
 
     @property
     def warm(self) -> bool:
@@ -312,23 +308,6 @@ def fetch_host(preds: torch.Tensor, mse: torch.Tensor) -> tuple[np.ndarray, floa
     """Predictions and the fit MSE to the host in ONE device copy."""
     host = torch.cat((preds.reshape(-1), mse.reshape(1).to(preds.dtype))).cpu()
     return host[:-1].reshape(preds.shape).numpy(), float(host[-1])
-
-
-def forecast_next_with_dispatch(
-    params: Params,
-    recent: Any,
-    cfg: ForecastConfig | None = None,
-    *,
-    device: DeviceLike = None,
-) -> tuple[torch.Tensor, InferenceDispatch]:
-    """Inference alone: [n_chips, window] recent samples -> ([n_chips,
-    horizon] predictions, dispatch record)."""
-    del cfg  # the widths come from the params and the input
-    dev = resolve_device(device)
-    from .fused_forward import forecast_forward
-
-    out = forecast_forward(_on(params, dev), _as_series(recent, dev).contiguous())
-    return out, InferenceDispatch(_inference_path(dev))
 
 
 def fit_and_forecast_with_dispatch(
@@ -397,7 +376,6 @@ def fit_and_forecast_incremental(
     steps: int = 60,
     warm_steps: int = WARM_STEPS,
     seed: int = 0,
-    cold_mse_tolerance: float = COLD_MSE_TOLERANCE,
     init: Params | None = None,
     device: DeviceLike = None,
 ) -> tuple[np.ndarray, InferenceDispatch, WarmState | None]:
@@ -408,7 +386,7 @@ def fit_and_forecast_incremental(
     ``fit_mse`` is a host float, fetched with the predictions in one
     copy. Demotion policy, always recorded in ``warm_demotion_reason``:
     a carry whose cfg or chip count differs, or a warm fit whose final
-    MSE exceeds ``cold_mse_tolerance × max(cold_mse, 1e-4)``, is
+    MSE exceeds ``COLD_MSE_TOLERANCE × max(cold_mse, 1e-4)``, is
     replaced by a cold refit. An exception propagates; it does not
     demote. Persistence ("repeat") passes the state through untouched."""
     cfg = cfg or ForecastConfig()
@@ -435,10 +413,10 @@ def fit_and_forecast_incremental(
                 x, y, _on(state.params, dev), state.opt_state, cfg, warm_steps
             )
             preds, warm_mse = fetch_host(_infer_recent(params, series, cfg), mse)
-            bound = cold_mse_tolerance * max(state.cold_mse, _DEMOTION_MSE_FLOOR)
+            bound = COLD_MSE_TOLERANCE * max(state.cold_mse, _DEMOTION_MSE_FLOOR)
             if warm_mse > bound:
                 demotion = (
-                    f"warm mse {warm_mse:.3g} > {cold_mse_tolerance:g}x "
+                    f"warm mse {warm_mse:.3g} > {COLD_MSE_TOLERANCE:g}x "
                     f"cold {state.cold_mse:.3g}"
                 )
             else:

@@ -181,14 +181,11 @@ def forecast_from_history_incremental(
     state: WarmState | None = None,
     steps: int = 60,
     warm_steps: int = WARM_STEPS,
-    data_source: str = "live-window",
     init: Params | None = None,
     device: DeviceLike = None,
 ) -> tuple[ForecastView, WarmState | None]:
     """Warm-start variant of :func:`forecast_from_history`: refines the
-    carried :class:`WarmState` and returns the new carry with the view.
-    ``data_source`` names what ``history`` is and is stamped into the
-    dispatch record the view mirrors."""
+    carried :class:`WarmState` and returns the new carry with the view."""
     cfg = cfg or ForecastConfig()
     dev = resolve_device(device)
     t0 = time.perf_counter()
@@ -196,7 +193,6 @@ def forecast_from_history_incremental(
         np.asarray(history.series, dtype=np.float32), cfg,
         state=state, steps=steps, warm_steps=warm_steps, init=init, device=dev,
     )
-    dispatch = dispatch._replace(data_source=data_source)
     fit_ms = round((time.perf_counter() - t0) * 1000, 1)
     fit_mse = None if dispatch.fit_mse is None else float(dispatch.fit_mse)
     view = _summarize(history, cfg, preds, dispatch, fit_ms, fit_mse)

@@ -126,61 +126,6 @@ def no_data_box(snap: TpuMetricsSnapshot) -> Element:
     )
 
 
-def _availability_salt(snap: TpuMetricsSnapshot | None) -> Any:
-    """Complete render inputs of :func:`availability_matrix` — the
-    ADR-027 salt rule: every value the subtree paints, so a stale hit
-    is impossible even if invalidation misses."""
-    if snap is None:
-        return None
-    return (
-        tuple(sorted(snap.availability.items())),
-        tuple(sorted(snap.resolved_series.items())),
-    )
-
-
-def _chip_salt(chip: Any) -> tuple:
-    """Everything :func:`chip_card` renders, in one comparable tuple."""
-    return (
-        chip.node,
-        chip.accelerator_id,
-        chip.tensorcore_utilization,
-        chip.memory_bandwidth_utilization,
-        chip.hbm_bytes_used,
-        chip.hbm_bytes_total,
-        chip.duty_cycle,
-    )
-
-
-def _forecast_salt(view: Any) -> tuple:
-    """Complete render inputs of :func:`forecast_section`. ``fit_ms``
-    is included deliberately: a refit legitimately changes the hint
-    text, so the boundary re-renders on refit and hits between them."""
-    return (
-        view.horizon_s,
-        view.window_s,
-        view.fit_ms,
-        view.fit_mse,
-        getattr(view, "data_source", "live-window"),
-        getattr(view, "inference_path", "cuda"),
-        getattr(view, "inference_fallback_reason", None),
-        len(view.at_risk),
-        tuple(
-            (c.node, c.accelerator_id, c.saturation_risk) for c in view.at_risk[:5]
-        ),
-        tuple(
-            (
-                c.node,
-                c.accelerator_id,
-                c.current,
-                c.predicted_peak,
-                c.predicted_mean,
-                c.saturation_risk,
-            )
-            for c in view.chips[:16]
-        ),
-    )
-
-
 def chip_card(chip: Any) -> Element:
     rows: list[tuple[str, Any]] = []
     if chip.tensorcore_utilization is not None:
@@ -256,8 +201,8 @@ def forecast_section(view: Any) -> Element:
             "p",
             {"class_": "hl-hint"},
             f"Model fit on the last {round(view.window_s / 60)} min of "
-            + _data_source_label(view)
-            + f" in {view.fit_ms:g} ms (online MLP, deterministic seed"
+            f"{view.data_source} history in {view.fit_ms:g} ms "
+            "(online MLP, deterministic seed"
             + (
                 # :g keeps tiny well-fit MSEs legible (1.2e-06, not
                 # the indistinguishable 0.0000).
@@ -270,20 +215,10 @@ def forecast_section(view: Any) -> Element:
     )
 
 
-def _data_source_label(view: Any) -> str:
-    """ADR-018 auditability: say what the fit trained on — the captured
-    in-process tier (/tpu/trends' data) or a live Prometheus range
-    query — so an operator can trace any forecast back to its input."""
-    source = getattr(view, "data_source", "live-window")
-    if source == "history":
-        return "captured history"
-    return "live-window history"
-
-
 def _inference_label(view: Any) -> str:
     """Human-readable dispatch record: which inference path served the
     prediction, and whether the fit was warm-started."""
-    path = getattr(view, "inference_path", "cuda")
+    path = view.inference_path
     warm = ", warm-start fit" if path.endswith("-warm") else ""
     if path.startswith("cuda"):
         return f"CUDA kernel (H100){warm}"
@@ -298,11 +233,7 @@ def metrics_page(
     metrics: TpuMetricsSnapshot | None, forecast: Any | None = None
 ) -> Element:
     children: list[Any] = [
-        fragment(
-            "cell:available",
-            _availability_salt(metrics),
-            lambda: availability_matrix(metrics),
-        )
+        fragment("cell:available", lambda: availability_matrix(metrics))
     ]
 
     if metrics is None:
@@ -350,16 +281,12 @@ def metrics_page(
 
     if forecast is not None:
         children.append(
-            fragment(
-                "cell:forecast",
-                _forecast_salt(forecast),
-                lambda: forecast_section(forecast),
-            )
+            fragment("cell:forecast", lambda: forecast_section(forecast))
         )
 
     # One boundary per chip card, keyed as the JAX package keys them.
     children.extend(
-        fragment(f"{c.node}/{c.accelerator_id}", _chip_salt(c), lambda c=c: chip_card(c))
+        fragment(f"{c.node}/{c.accelerator_id}", lambda c=c: chip_card(c))
         for c in metrics.chips
     )
     return h("div", {"class_": "hl-page hl-metrics"}, children)

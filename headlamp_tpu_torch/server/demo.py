@@ -72,7 +72,7 @@ def add_demo_prometheus(t: MockTransport, fleet: dict[str, Any]) -> MockTranspor
     t.add(q("hbm_bytes_used"), _vec(used))
     t.add(q("hbm_bytes_total"), _vec(total))
 
-    # The client's default scrape issues matcher-joined
+    # The client's scrape sends matcher-joined
     # `{__name__=~...}` queries; serve them the union of the same samples
     # with __name__ injected for the demux. Batches whose members have no
     # demo data stay unrouted, so the client re-asks per metric.

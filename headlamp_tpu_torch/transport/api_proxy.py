@@ -58,7 +58,6 @@ class MockTransport:
         self.routes: dict[str, Any] = dict(routes or {})
         self._prefix_routes: list[tuple[str, Any]] = []
         self._list_routes: dict[str, Any] = {}
-        self._overrides: list[tuple[str, Any]] = []
         self.calls: list[str] = []
 
     def add(self, path: str, response: Any) -> None:
@@ -66,11 +65,6 @@ class MockTransport:
 
     def add_prefix(self, prefix: str, response: Any) -> None:
         self._prefix_routes.append((prefix, response))
-
-    def add_override(self, prefix: str, response: Any) -> None:
-        """Route checked before everything else (last registered wins)
-        — the test hook for 'break this endpoint'."""
-        self._overrides.append((prefix, response))
 
     def add_list(self, path: str, items: list[Any]) -> None:
         """Serve a Kubernetes list at ``path`` honoring ``limit=`` /
@@ -105,9 +99,6 @@ class MockTransport:
 
     def request(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> Any:
         self.calls.append(path)
-        for prefix, response in reversed(self._overrides):
-            if path.startswith(prefix):
-                return self._resolve(path, response)
         if path in self.routes:
             return self._resolve(path, self.routes[path])
         list_route = self._match_list_route(path)

@@ -1,28 +1,26 @@
-"""Fragment boundaries: keyed, salted subtrees that pages mark.
+"""Fragment boundaries: keyed subtrees that pages mark.
 
 In the JAX package a boundary's bytes may be served from a fragment
-cache. This package has no cache yet: a boundary builds its subtree
-inline, once, and every renderer descends through it, so the page text
-and HTML are exactly what the JAX package paints without a cache.
+cache, keyed and salted. This package has no cache yet: a boundary
+builds its subtree inline, once, and every renderer descends through
+it, so the page text and HTML are exactly what the JAX package paints
+without a cache.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Callable
 
 from .vdom import BoundaryNode, Child
 
 
 class FragmentBoundary(BoundaryNode):
-    """A lazy subtree. ``key`` names it and ``salt`` covers every
-    render input beyond the key, as the JAX package's cache requires;
-    here they are carried for parity and ``build`` runs at most once."""
+    """A lazy subtree named by ``key``; ``build`` runs at most once."""
 
-    __slots__ = ("key", "salt", "_build", "_built")
+    __slots__ = ("key", "_build", "_built")
 
-    def __init__(self, key: str, salt: Any, build: Callable[[], Child]) -> None:
+    def __init__(self, key: str, build: Callable[[], Child]) -> None:
         self.key = key
-        self.salt = salt
         self._build = build
         self._built: Child = None
 
@@ -32,6 +30,6 @@ class FragmentBoundary(BoundaryNode):
         return self._built
 
 
-def fragment(key: str, salt: Any, build: Callable[[], Child]) -> FragmentBoundary:
+def fragment(key: str, build: Callable[[], Child]) -> FragmentBoundary:
     """Hyperscript-style constructor pages use to mark a boundary."""
-    return FragmentBoundary(key, salt, build)
+    return FragmentBoundary(key, build)

@@ -16,6 +16,11 @@ from headlamp_tpu_torch.models.convert import (
     params_to_numpy,
 )
 
+#: pytest-xdist runs several workers on the same cores: one intra-op
+#: thread each keeps torch's spinning thread pools from oversubscribing
+#: them (it cuts these tests' CPU time about fourfold).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def trained():

@@ -1,23 +1,18 @@
-"""Parity of the port's forecaster with the JAX package on the CPU.
+"""Parity of the port's forecaster math with the JAX package on the CPU.
 
 The same numpy inputs go through the JAX function (the Pallas kernel in
 interpret mode, as tests/test_pallas.py runs it) and the port's
 counterpart with ``device="cpu"``. Tolerances, with the differences
-measured on the CPU:
-- forward and the kernel's plain version: max-abs 1e-4 (measured 4.0e-5;
-  the only differences are f32 summation order and the points where a
-  hidden activation rounds to a different bf16 neighbour);
-- a 60-step cold fit and a 10-step warm fit: final MSE within 1e-2
-  relative (measured 5e-4) and predictions within 1e-2 max-abs
-  (measured 3.5e-3) — per-step f32 order differences compound through
-  Adam;
+these tests measure (``pytest -s`` prints them):
+- forward and the kernel's plain version: max-abs 1e-4 (measured
+  5.3e-6; the differences are f32 summation order and the points where
+  a hidden activation rounds to the other bf16 neighbour);
 - make_windows: bit-identical (a pure gather).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -25,40 +20,19 @@ from headlamp_tpu.models import forecast as jf
 from headlamp_tpu.models.pallas_forward import forecast_forward_pallas
 from headlamp_tpu_torch.models import forecast as tf
 from headlamp_tpu_torch.models import fused_forward as ff
-from headlamp_tpu_torch.models.convert import (
-    opt_state_from_optax,
-    params_from_jax,
-    params_to_numpy,
-)
+from headlamp_tpu_torch.models.convert import params_from_jax
+
+#: pytest-xdist runs several workers on the same cores: one intra-op
+#: thread each keeps torch's spinning thread pools from oversubscribing
+#: them (it cuts these tests' CPU time about fourfold).
+torch.set_num_threads(1)
 
 FORWARD_TOL = 1e-4
-FIT_MSE_REL_TOL = 1e-2
-FIT_PRED_TOL = 1e-2
 
 
 @pytest.fixture(scope="module")
 def jax_params():
     return jf.init_params(jax.random.PRNGKey(3), jf.ForecastConfig())
-
-
-@pytest.fixture(scope="module")
-def cold_fit():
-    """JAX's 60-step cold fit on synthetic_telemetry(64, 61) from
-    PRNGKey(0), and the port's from the same init and series."""
-    cfg = jf.ForecastConfig()
-    series = jf.synthetic_telemetry(64, 61)
-    out, params, opt_state, mse = jf._fit_forecast_state_program(
-        series, jax.random.PRNGKey(0), cfg, 60, "xla", 0
-    )
-    init = params_from_jax(jf.init_params(jax.random.PRNGKey(0), cfg), "cpu")
-    preds, dispatch, state = tf.fit_and_forecast_incremental(
-        np.asarray(series), tf.ForecastConfig(), steps=60, init=init, device="cpu"
-    )
-    return {
-        "series": np.asarray(series),
-        "jax": (np.asarray(out), params, opt_state, float(mse)),
-        "port": (preds, dispatch, state),
-    }
 
 
 class TestMath:
@@ -92,6 +66,8 @@ class TestMath:
         for got in (fwd, plain, served):
             assert np.abs(got - ref).max() <= FORWARD_TOL
             assert np.abs(got - pal).max() <= FORWARD_TOL
+        print(f"forward rows={rows}: max-abs vs jax {np.abs(plain - ref).max():.3g}, "
+              f"vs pallas interpret {np.abs(plain - pal).max():.3g}")
 
     def test_module_matches_functional_forward(self, jax_params):
         params = params_from_jax(jax_params, "cpu")
@@ -123,210 +99,3 @@ class TestMath:
         c = tf.synthetic_telemetry(16, 61, torch.Generator().manual_seed(1), device="cpu")
         assert a.shape == (16, 61) and torch.equal(a, b) and not torch.equal(a, c)
         assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
-
-
-class TestKernelGuard:
-    def _wide(self):
-        params = tf.init_params(torch.Generator().manual_seed(0), tf.ForecastConfig(), device="cpu")
-        params["w1"] = torch.zeros((32, 256))
-        return params
-
-    def test_hidden_256_rejected(self):
-        with pytest.raises(ValueError, match="single-tile kernel width 128"):
-            ff.forecast_forward(self._wide(), torch.zeros((4, 32)))
-
-    def test_hidden_256_rejected_like_pallas(self):
-        big = jf.init_params(jax.random.PRNGKey(0), jf.ForecastConfig())
-        big["w1"] = jnp.zeros((32, 256))
-        with pytest.raises(ValueError):
-            forecast_forward_pallas(big, jnp.zeros((4, 32)), interpret=True)
-        with pytest.raises(ValueError):
-            ff.forecast_forward(self._wide(), torch.zeros((4, 32)))
-
-    @pytest.mark.parametrize("dims", [(129, 128, 8), (32, 128, 129), (32, 256, 8)])
-    def test_check_single_tile(self, dims):
-        with pytest.raises(ValueError):
-            ff.check_single_tile(*dims)
-        ff.check_single_tile(128, 128, 128)
-
-
-class TestAdam:
-    def test_update_matches_optax(self, jax_params):
-        # Three steps of optax.adam(1e-3) and of the explicit Adam on the
-        # same gradients: params and moments agree to f32 rounding.
-        rng = np.random.default_rng(0)
-        grads = [
-            {k: rng.normal(size=np.shape(v)).astype(np.float32) for k, v in jax_params.items()}
-            for _ in range(3)
-        ]
-        opt = optax.adam(1e-3)
-        jp, js = jax_params, opt.init(jax_params)
-        tp = params_from_jax(jax_params, "cpu")
-        ts = tf.adam_init(tp)
-        for g in grads:
-            updates, js = opt.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
-            jp = optax.apply_updates(jp, updates)
-            tf.adam_update_(tp, {k: torch.from_numpy(v) for k, v in g.items()}, ts, 1e-3)
-        assert int(ts.count) == int(js[0].count) == 3
-        for name in tf.PARAM_NAMES:
-            assert np.abs(np.asarray(jp[name]) - tp[name].numpy()).max() <= 1e-6
-            assert np.abs(np.asarray(js[0].mu[name]) - ts.mu[name].numpy()).max() <= 1e-6
-            assert np.abs(np.asarray(js[0].nu[name]) - ts.nu[name].numpy()).max() <= 1e-6
-
-
-class TestFitParity:
-    def test_cold_fit_matches_jax(self, cold_fit):
-        j_out, _, _, j_mse = cold_fit["jax"]
-        preds, dispatch, state = cold_fit["port"]
-        assert dispatch.path == "torch" and dispatch.fallback_reason is None
-        assert abs(dispatch.fit_mse - j_mse) / j_mse <= FIT_MSE_REL_TOL
-        assert preds.shape == j_out.shape == (64, 8)
-        assert np.abs(preds - j_out).max() <= FIT_PRED_TOL
-        assert state.generation == 0 and state.cold_mse == dispatch.fit_mse
-
-    def test_cold_fit_params_track_jax(self, cold_fit):
-        _, j_params, _, _ = cold_fit["jax"]
-        _, _, state = cold_fit["port"]
-        got = params_to_numpy(state.params)
-        for name in tf.PARAM_NAMES:
-            assert np.abs(np.asarray(j_params[name]) - got[name]).max() <= 1e-2
-        assert int(state.opt_state.count) == 60
-
-    def test_warm_fit_from_carried_jax_state(self, cold_fit):
-        series = cold_fit["series"]
-        _, j_params, j_opt, j_mse = cold_fit["jax"]
-        cfg = tf.ForecastConfig()
-        w_out, _, _, w_mse = jf._warm_fit_forecast_program(
-            jnp.asarray(series), j_params, j_opt, jf.ForecastConfig(), 10, "xla", 0
-        )
-        carry = tf.WarmState(
-            params_from_jax(j_params, "cpu"), opt_state_from_optax(j_opt, "cpu"),
-            j_mse, 0, cfg, series.shape[0],
-        )
-        preds, dispatch, state = tf.fit_and_forecast_incremental(
-            series, cfg, state=carry, device="cpu"
-        )
-        assert dispatch.path == "torch-warm" and dispatch.carried_from_generation == 0
-        assert dispatch.warm_demotion_reason is None
-        assert abs(dispatch.fit_mse - float(w_mse)) / float(w_mse) <= FIT_MSE_REL_TOL
-        assert np.abs(preds - np.asarray(w_out)).max() <= FIT_PRED_TOL
-        assert int(state.opt_state.count) == 70
-        # The carry itself is never modified in place.
-        assert int(carry.opt_state.count) == 60
-
-    def test_cold_entry_with_dispatch_matches_jax(self):
-        series = np.asarray(jf.synthetic_telemetry(8, 48))
-        j_out, j_disp = jf.fit_and_forecast_with_dispatch(series, steps=20)
-        init = params_from_jax(jf.init_params(jax.random.PRNGKey(0), jf.ForecastConfig()), "cpu")
-        out, disp = tf.fit_and_forecast_with_dispatch(series, steps=20, init=init, device="cpu")
-        assert disp.path == "torch" and isinstance(disp.fit_mse, torch.Tensor)
-        assert np.abs(out.numpy() - np.asarray(j_out)).max() <= FIT_PRED_TOL
-        j_mse = float(j_disp.fit_mse)
-        assert abs(float(disp.fit_mse) - j_mse) / j_mse <= FIT_MSE_REL_TOL
-
-    def test_forecast_next_matches_jax(self, jax_params):
-        x = np.random.default_rng(9).uniform(size=(6, 32)).astype(np.float32)
-        ref = np.asarray(jf.forecast_next(jax_params, x))
-        out, disp = tf.forecast_next_with_dispatch(
-            params_from_jax(jax_params, "cpu"), x, device="cpu"
-        )
-        assert disp.path == "torch" and not disp.used_kernel
-        assert np.abs(out.numpy() - ref).max() <= FORWARD_TOL
-
-
-def _series(n_chips=3, length=48):
-    base = np.linspace(0.2, 0.8, length, dtype="float32")
-    return np.tile(base, (n_chips, 1)) + 0.01 * np.arange(n_chips, dtype="float32").reshape(-1, 1)
-
-
-class TestWarmStartOutcomes:
-    """tests/test_forecast.py::TestWarmStart's cases, run through both
-    packages: the same demotion decisions, reasons and lineage."""
-
-    def test_cold_fit_seeds_state(self):
-        _, jd, js = jf.fit_and_forecast_incremental(_series(), steps=12)
-        _, d, state = tf.fit_and_forecast_incremental(_series(), steps=12, device="cpu")
-        assert d.path == "torch" and not d.warm and not jd.warm
-        assert d.warm_demotion_reason is None and d.carried_from_generation is None
-        assert state.generation == js.generation == 0
-        assert state.cold_mse == d.fit_mse and state.n_chips == js.n_chips == 3
-
-    def test_warm_fit_within_tolerance_of_cold(self):
-        series = _series()
-        _, cold, state = tf.fit_and_forecast_incremental(series, steps=30, device="cpu")
-        out, warm, state2 = tf.fit_and_forecast_incremental(
-            series, state=state, steps=30, warm_steps=5, device="cpu"
-        )
-        _, jcold, jstate = jf.fit_and_forecast_incremental(series, steps=30)
-        _, jwarm, _ = jf.fit_and_forecast_incremental(series, state=jstate, steps=30, warm_steps=5)
-        assert warm.warm == jwarm.warm is True
-        assert warm.path == "torch-warm" and warm.warm_demotion_reason is None
-        assert warm.carried_from_generation == jwarm.carried_from_generation == 0
-        assert warm.fit_mse <= tf.COLD_MSE_TOLERANCE * max(cold.fit_mse, 1e-4)
-        assert state2.generation == 0 and out.shape[0] == 3
-
-    def test_fleet_resize_demotes_with_reason(self):
-        _, _, state = tf.fit_and_forecast_incremental(_series(3), steps=12, device="cpu")
-        out, d, state2 = tf.fit_and_forecast_incremental(
-            _series(5), state=state, steps=12, device="cpu"
-        )
-        _, _, jstate = jf.fit_and_forecast_incremental(_series(3), steps=12)
-        _, jd, _ = jf.fit_and_forecast_incremental(_series(5), state=jstate, steps=12)
-        assert not d.warm and d.path == "torch"
-        assert d.warm_demotion_reason == jd.warm_demotion_reason
-        assert "chips 3->5" in d.warm_demotion_reason
-        assert d.carried_from_generation == 0
-        assert state2.generation == 1 and state2.n_chips == 5 and out.shape[0] == 5
-
-    def test_cfg_change_demotes(self):
-        _, _, state = tf.fit_and_forecast_incremental(_series(), steps=4, device="cpu")
-        other = tf.ForecastConfig(learning_rate=2e-3)
-        _, d, state2 = tf.fit_and_forecast_incremental(
-            _series(), other, state=state, steps=4, device="cpu"
-        )
-        assert "carry mismatch" in d.warm_demotion_reason and state2.cfg == other
-
-    def test_bad_warm_mse_demotes_to_cold(self):
-        series = _series()
-        _, _, state = tf.fit_and_forecast_incremental(series, steps=12, device="cpu")
-        rigged = state._replace(cold_mse=1e-12)
-        _, d, state2 = tf.fit_and_forecast_incremental(
-            series, state=rigged, steps=12, warm_steps=2, device="cpu"
-        )
-        _, _, jstate = jf.fit_and_forecast_incremental(series, steps=12)
-        _, jd, jstate2 = jf.fit_and_forecast_incremental(
-            series, state=jstate._replace(cold_mse=1e-12), steps=12, warm_steps=2
-        )
-        assert not d.warm and not jd.warm
-        assert d.warm_demotion_reason.startswith("warm mse")
-        assert jd.warm_demotion_reason.startswith("warm mse")
-        assert state2.generation == jstate2.generation == 1
-        assert state2.cold_mse == d.fit_mse
-
-    def test_short_history_passes_state_through(self):
-        cfg = tf.ForecastConfig()
-        _, _, state = tf.fit_and_forecast_incremental(_series(), steps=12, device="cpu")
-        short = np.full((3, cfg.window // 2), 0.4, dtype="float32")
-        out, d, state2 = tf.fit_and_forecast_incremental(short, state=state, device="cpu")
-        jout, jd, _ = jf.fit_and_forecast_incremental(short)
-        assert d.path == jd.path == "repeat"
-        assert state2 is state
-        assert np.array_equal(out, np.asarray(jout))
-
-    def test_repeat_path_of_cold_entry(self):
-        short = np.random.default_rng(2).uniform(size=(4, 20)).astype(np.float32)
-        out, d = tf.fit_and_forecast_with_dispatch(short, device="cpu")
-        jout, jd = jf.fit_and_forecast_with_dispatch(short)
-        assert d.path == jd.path == "repeat" and d.fit_mse is None
-        assert np.array_equal(out.numpy(), np.asarray(jout))
-
-    def test_fit_exception_propagates(self, monkeypatch):
-        # No demotion on an exception: it reaches the caller.
-        _, _, state = tf.fit_and_forecast_incremental(_series(), steps=4, device="cpu")
-
-        def broken(*a, **k):
-            raise RuntimeError("fit exploded")
-
-        monkeypatch.setattr(tf, "_train", broken)
-        with pytest.raises(RuntimeError, match="fit exploded"):
-            tf.fit_and_forecast_incremental(_series(), state=state, device="cpu")

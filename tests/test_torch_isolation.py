@@ -1,7 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX, optax nor the
-JAX package, runs on CUDA unless the caller asks for the CPU, and has no
-path that swaps in the CPU, the plain version or a missing forecast when
-CUDA or the kernel is absent."""
+"""The PyTorch port stands alone: no module of it, nor chip_smoke.py,
+imports JAX, optax or the JAX package, and the package imports with all
+three blocked."""
 
 import ast
 import os
@@ -10,52 +9,51 @@ import sys
 import textwrap
 from pathlib import Path
 
-import numpy as np
 import pytest
-import torch
 
 import headlamp_tpu_torch
-from headlamp_tpu_torch import cli
-from headlamp_tpu_torch.device import resolve_device
-from headlamp_tpu_torch.kernels import build
-from headlamp_tpu_torch.models import fused_forward as ff
-from headlamp_tpu_torch.models.forecast import (
-    ForecastConfig,
-    fit_and_forecast_incremental,
-    fit_and_forecast_with_dispatch,
-    init_params,
-)
-from headlamp_tpu_torch.server.demo import make_demo_transport
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = Path(headlamp_tpu_torch.__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "optax", "headlamp_tpu"}
 
 
-def _port_sources() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+def _package_sources() -> list[Path]:
+    """The package's modules; kernel build outputs are not sources."""
+    return sorted(
+        p for p in PORT.rglob("*.py") if "_build" not in p.relative_to(PORT).parts
+    )
 
 
-@pytest.mark.parametrize(
-    "path", _port_sources(), ids=lambda p: str(p.relative_to(REPO))
-)
-def test_no_jax_or_reference_imports(path):
-    tree = ast.parse(path.read_text(encoding="utf-8"))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots = [alias.name.split(".")[0] for alias in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            roots = [node.module.split(".")[0]]
-        else:
-            continue
-        bad = FORBIDDEN.intersection(roots)
-        assert not bad, f"{path.name}:{node.lineno} imports {sorted(bad)}"
+def _source_groups() -> dict[str, list[Path]]:
+    """Sources by subpackage ("." for the package's own top level), plus
+    chip_smoke.py on its own."""
+    groups: dict[str, list[Path]] = {"chip_smoke.py": [REPO / "chip_smoke.py"]}
+    for path in _package_sources():
+        parts = path.relative_to(PORT).parts
+        groups.setdefault(parts[0] if len(parts) > 1 else ".", []).append(path)
+    return groups
+
+
+@pytest.mark.parametrize("group", sorted(_source_groups()))
+def test_no_jax_or_reference_imports(group):
+    for path in _source_groups()[group]:
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [alias.name.split(".")[0] for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            bad = FORBIDDEN.intersection(roots)
+            assert not bad, f"{path.name}:{node.lineno} imports {sorted(bad)}"
 
 
 def test_package_imports_with_jax_and_reference_blocked():
     modules = sorted(
         "headlamp_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
-        for p in PORT.rglob("*.py")
+        for p in _package_sources()
         if p.name != "__init__.py"
     )
     code = textwrap.dedent(
@@ -78,133 +76,3 @@ def test_package_imports_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
-
-
-def test_chip_smoke_refuses_without_cuda(tmp_path):
-    # Alone in a directory (no package beside it) and without CUDA, the
-    # smoke script fails and prints no result line.
-    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
-    out = subprocess.run(
-        [sys.executable, "chip_smoke.py"], cwd=tmp_path,
-        capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
-    )
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
-
-
-class TestDevicePolicy:
-    @pytest.fixture
-    def no_cuda(self, monkeypatch):
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-
-    def test_none_means_cuda_and_raises_without_it(self, no_cuda):
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            resolve_device(None)
-        with pytest.raises(RuntimeError):
-            resolve_device("cuda")
-
-    def test_cpu_on_request(self, no_cuda):
-        assert resolve_device("cpu") == torch.device("cpu")
-        assert resolve_device(torch.device("cpu")).type == "cpu"
-
-    def test_other_device_types_rejected(self):
-        with pytest.raises(ValueError):
-            resolve_device("meta")
-
-    def test_entry_points_default_to_cuda(self, no_cuda):
-        series = np.full((2, 48), 0.5, dtype=np.float32)
-        with pytest.raises(RuntimeError):
-            fit_and_forecast_with_dispatch(series, steps=1)
-        with pytest.raises(RuntimeError):
-            fit_and_forecast_incremental(series, steps=1)
-        with pytest.raises(RuntimeError):
-            init_params(torch.Generator().manual_seed(0), ForecastConfig())
-        with pytest.raises(RuntimeError):
-            cli.render_page("metrics", make_demo_transport("v5e4"))
-        with pytest.raises(RuntimeError):
-            cli.main(["metrics", "--demo", "v5e4"])
-
-
-class TestNoHiddenFallback:
-    def _params(self):
-        return init_params(torch.Generator().manual_seed(0), ForecastConfig(), device="cpu")
-
-    def test_kernel_wrapper_refuses_cpu_tensors(self):
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            ff.forecast_forward_cuda(self._params(), torch.zeros((4, 32)))
-
-    def test_cpu_path_never_builds_the_kernel(self, monkeypatch):
-        def no_build(name):
-            raise AssertionError("the CPU path must not build the kernel")
-
-        monkeypatch.setattr(build, "load", no_build)
-        out = ff.forecast_forward(self._params(), torch.zeros((4, 32)))
-        assert out.shape == (4, 8)
-
-    def test_cuda_tensor_goes_to_the_kernel(self, monkeypatch):
-        # The dispatch reads only the device: a CUDA tensor reaches the
-        # kernel wrapper, never the plain version.
-        seen = []
-        monkeypatch.setattr(ff, "forecast_forward_cuda", lambda p, x: seen.append(x) or x)
-        monkeypatch.setattr(
-            ff, "forecast_forward_reference",
-            lambda p, x: pytest.fail("plain version used for a CUDA tensor"),
-        )
-        fake = torch.empty((2, 32), device="meta")
-        with pytest.raises(ValueError):
-            ff.forecast_forward(self._params(), fake)
-
-        class CudaLike:
-            device = torch.device("cuda")
-
-        x = CudaLike()
-        assert ff.forecast_forward(self._params(), x) is x and seen == [x]
-
-    def test_launch_count_starts_at_zero_on_reset(self):
-        ff.LAUNCHES.n = 3
-        ff.LAUNCHES.reset()
-        assert ff.LAUNCHES.n == 0
-
-
-class TestBuild:
-    """The builder runs nvcc from the kernel's source at first use; here a
-    stand-in compiler script shows the caching and the loud failure."""
-
-    def _fake_nvcc(self, tmp_path, body):
-        script = tmp_path / "nvcc"
-        script.write_text("#!/bin/sh\n" + body)
-        script.chmod(0o755)
-        return str(script)
-
-    def test_failed_build_raises_with_compiler_output(self, tmp_path, monkeypatch):
-        nvcc = self._fake_nvcc(tmp_path, 'echo "error: bad kernel" >&2\nexit 2\n')
-        monkeypatch.setattr(build, "find_nvcc", lambda: nvcc)
-        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
-        with pytest.raises(RuntimeError, match="bad kernel"):
-            build.build("forecast_mlp")
-        assert not list((tmp_path / "_build").rglob("*.so"))
-
-    def test_build_is_cached_by_source_hash(self, tmp_path, monkeypatch):
-        # Stand-in compiler: touch the file after "-o" and report.
-        nvcc = self._fake_nvcc(
-            tmp_path,
-            'while [ "$1" != "-o" ]; do shift; done\n'
-            'touch "$2"\necho "ptxas info : Used 64 registers" >&2\n',
-        )
-        monkeypatch.setattr(build, "find_nvcc", lambda: nvcc)
-        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
-        first = build.build("forecast_mlp")
-        second = build.build("forecast_mlp")
-        assert not first.cache_hit and "registers" in first.log
-        assert second.cache_hit and second.library == first.library
-        assert first.library.parent.parent == tmp_path / "_build"
-        assert len(first.library.parent.name) == 64  # sha256 hex digest
-
-    def test_flags_target_hopper(self):
-        assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-        assert "--use_fast_math" not in build.NVCC_FLAGS
-
-    def test_build_dir_is_ignored_by_git(self):
-        ignored = (REPO / ".gitignore").read_text().splitlines()
-        assert "headlamp_tpu_torch/kernels/_build/" in ignored
