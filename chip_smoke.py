@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout, holds it against its
-plain PyTorch version on the card, times it, then drives the port's main
+Builds the port's CUDA kernel from the checkout (no spills allowed),
+holds it against its plain PyTorch version on the card at the 64-row
+tiles' edges and on exact-arithmetic inputs, times it beside the launch
+floor, its plain version and the library chain, then drives the port's main
 path — the metrics page with its forecast, through the CLI entry point,
 and the forecast at fleet scale — and checks that the path went through
 the kernel. It exits non-zero at the first failure, and without CUDA or
@@ -32,9 +34,13 @@ HBM_BYTES_PER_S = 3.35e12
 #: Fixed wall clock for the demo's Prometheus range queries.
 FIXED_CLOCK = 1785283200.0
 
-#: Batches the kernel is held to its plain version at: edge sizes, the
-#: demo page's 64 chips and the at-scale forecast's 4096.
-CHECK_ROWS = (1, 3, 64, 200, 256, 4096, 16384)
+#: Batches the kernel is held to its plain version at: the 64-row tiles'
+#: edges, the demo page's 64 chips and the at-scale forecast's 4096.
+CHECK_ROWS = (1, 3, 63, 64, 65, 127, 128, 129, 200, 256, 4096, 4097, 16384)
+#: The exact-arithmetic check (fused_forward.exact_inputs): every bf16
+#: operand, product and partial sum is exact, so only expf's ulps differ.
+EXACT_ROWS = 4097
+EXACT_TOL = 1e-6
 TIME_ROWS = (64, 256, 4096, 16384)
 #: The at-scale forecast's chip count (fleet_large(1024) has 4096 chips);
 #: the kernels line reports the kernel at this batch.
@@ -54,10 +60,6 @@ PAGE_FIT_TOL = 1e-2
 #: at-scale path twice (cold, warm); each fit ends in one forward.
 PAGE_LAUNCHES = 3
 SCALE_LAUNCHES = 2
-TIMED_CALLS = 200
-#: GPU spin queued ahead of the timed calls, so they run back to back on
-#: the device and the events time the device, not the host's enqueue.
-SPIN_CYCLES = 200_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -75,24 +77,6 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_device_ms(torch: Any, fn: Callable[[], Any]) -> tuple[float, float]:
-    """(median, mean) device time of one call over TIMED_CALLS calls
-    after warm-up: the median from CUDA events around each call, the
-    mean from one event pair around all of them."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_CALLS + 1)]
-    torch.cuda._sleep(SPIN_CYCLES)
-    marks[0].record()
-    for mark in marks[1:]:
-        fn()
-        mark.record()
-    torch.cuda.synchronize()
-    per_call = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    return statistics.median(per_call), marks[0].elapsed_time(marks[-1]) / TIMED_CALLS
 
 
 def profile_device(torch: Any, fn: Callable[[], Any]) -> tuple[float, int, list]:
@@ -138,6 +122,7 @@ def main() -> int:
 
     from headlamp_tpu_torch.cli import render_page
     from headlamp_tpu_torch.kernels import build
+    from headlamp_tpu_torch.kernels.ablation import time_device_ms
     from headlamp_tpu_torch.metrics.client import (
         UtilizationHistory,
         fetch_tpu_metrics,
@@ -151,6 +136,7 @@ def main() -> int:
     )
     from headlamp_tpu_torch.models.fused_forward import (
         LAUNCHES,
+        exact_inputs,
         forecast_forward_cuda,
         forecast_forward_reference,
     )
@@ -175,8 +161,12 @@ def main() -> int:
     print(f"build: forecast_mlp in {info.seconds:.2f} s, cache_hit={info.cache_hit}, "
           f"{info.library.relative_to(ROOT)}")
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(word in line for word in ("registers", "spill", "wgmma", "Performance")):
             print(f"  ptxas: {line.strip()}")
+    spills = [line for line in info.log.splitlines() if "spill stores" in line]
+    check(info.cache_hit or (spills and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line for line in spills)),
+        "ptxas reports spills")
 
     # 3. The kernel against its plain version, at full width.
     cfg = ForecastConfig()
@@ -196,6 +186,15 @@ def main() -> int:
         print(f"check: rows={rows} max_abs_err={err:.3e} (tol {KERNEL_TOL:g})")
         check(err <= KERNEL_TOL, f"kernel differs from its plain version by {err} at {rows}")
         max_err = max(max_err, err)
+    exact_params, exact_x = exact_inputs(cfg.window, cfg.hidden, cfg.horizon, EXACT_ROWS)
+    exact_params = {k: v.to(dev) for k, v in exact_params.items()}
+    got = forecast_forward_cuda(exact_params, exact_x.to(dev))
+    want = forecast_forward_reference(exact_params, exact_x.to(dev))
+    torch.cuda.synchronize()
+    exact_err = float((got - want).abs().max())
+    print(f"check: exact arithmetic, rows={EXACT_ROWS} max_abs_err={exact_err:.3e} "
+          f"(tol {EXACT_TOL:g})")
+    check(exact_err <= EXACT_TOL, f"kernel differs on exact inputs by {exact_err}")
     wide = dict(params, w1=torch.zeros((cfg.window, 256), device=dev))
     try:
         forecast_forward_cuda(wide, torch.zeros((4, cfg.window), device=dev))
@@ -212,18 +211,25 @@ def main() -> int:
         h = F.gelu(torch.addmm(bf["b2"], h, bf["w2"]), approximate="tanh")
         return torch.sigmoid(torch.addmm(bf["b3"], h, bf["w3"]).float())
 
+    # The launch floor: one one-element in-place add, the least a launch
+    # costs on this card. A kernel near it has nothing left to win.
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_mean = time_device_ms(lambda: one.add_(1.0))
+    print(f"launch floor: one-element add_ {floor_ms:.6f} ms (mean {floor_mean:.6f})")
     timings: dict[int, dict[str, Any]] = {}
     for rows in TIME_ROWS:
         x = torch.rand((rows, cfg.window), generator=gen).to(dev)
-        kernel_ms, kernel_mean = time_device_ms(torch, lambda: forecast_forward_cuda(params, x))
-        plain_ms, plain_mean = time_device_ms(torch, lambda: forecast_forward_reference(params, x))
-        library_ms, library_mean = time_device_ms(torch, lambda: library_chain(x))
+        kernel_ms, kernel_mean = time_device_ms(lambda: forecast_forward_cuda(params, x))
+        plain_ms, plain_mean = time_device_ms(lambda: forecast_forward_reference(params, x))
+        library_ms, library_mean = time_device_ms(lambda: library_chain(x))
         b_ms, b_by = bound_ms(rows, cfg.window, cfg.hidden, cfg.horizon)
         timings[rows] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=b_ms, bound_by=b_by)
         print(f"time: rows={rows} kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
               f"library_ms={library_ms:.6f} bound_ms={b_ms:.6f} ({b_by}); means "
-              f"{kernel_mean:.6f} {plain_mean:.6f} {library_mean:.6f}")
+              f"{kernel_mean:.6f} {plain_mean:.6f} {library_mean:.6f}; "
+              f"{kernel_ms / floor_ms:.2f}x the launch floor, "
+              f"{'beats' if kernel_ms <= library_ms else 'LOSES TO'} the library chain")
 
     # 5. The main path: the metrics page through the CLI entry point,
     #    then the warm-start carry on the same transport. Each path's
@@ -347,6 +353,7 @@ def main() -> int:
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],
         "library_ms": at["library_ms"],
+        "launch_floor_ms": floor_ms,
         "rows": SCALE_CHIPS,
     }]}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

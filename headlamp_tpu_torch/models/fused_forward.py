@@ -4,9 +4,12 @@ plain PyTorch version.
 The counterpart of ``headlamp_tpu/models/pallas_forward.py``, whose
 Pallas kernel computed ``sigmoid(gelu(gelu(x@w1+b1)@w2+b2)@w3+b3)`` per
 128-row tile with every weight resident on chip. Here the kernel is
-hand-written CUDA C++ for Hopper (``kernels/forecast_mlp.cu``), built by
-``nvcc`` at first use. It takes the true widths (no 128-lane padding)
-and keeps the TPU kernel's single-tile guard: every dimension ≤ 128.
+hand-written CUDA C++ for Hopper (``kernels/forecast_mlp.cu``: ``wgmma``
+on bf16 with f32 accumulation, weights and x tiles staged by
+``cp.async.bulk``, persistent 64-row tiles), built by ``nvcc`` at first
+use. It takes the true widths (no 128-lane padding) and keeps the TPU
+kernel's single-tile guard: every dimension ≤ 128. Its bulk copies need
+every operand to start on a 16-byte boundary.
 
 - :func:`forecast_forward_cuda` launches the kernel on a CUDA tensor,
   on PyTorch's current stream, without syncing the host.
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..kernels import build
@@ -30,6 +34,8 @@ from .forecast import PARAM_NAMES, Params, forward
 #: Every dimension must fit this width (the TPU kernel's lane width,
 #: kept as the CUDA kernel's bound on shared memory and registers).
 MAX_DIM = 128
+#: Operand alignment in bytes: the kernel stages operands by bulk copy.
+ALIGN = 16
 
 
 class LaunchCount:
@@ -101,6 +107,11 @@ def _check_operands(params: Params, x: torch.Tensor) -> tuple[int, int, int, int
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(
+                f"{name} must start on a {ALIGN}-byte aligned address for the "
+                f"kernel's bulk copies (data_ptr {t.data_ptr():#x})"
+            )
         if name != "x" and tuple(t.shape) != expected[name]:
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, expected {expected[name]}"
@@ -133,6 +144,41 @@ def forecast_forward_cuda(params: Params, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"forecast_mlp_forward launch failed: {reason} ({err})")
     LAUNCHES.n += 1
     return out
+
+
+def exact_inputs(
+    window: int, hidden: int, horizon: int, rows: int, seed: int = 0
+) -> tuple[Params, torch.Tensor]:
+    """Params and x (f32, on the CPU) on which the forward's arithmetic is
+    exact up to the last sigmoid: every bf16 operand, product and f32
+    partial sum is a small multiple of a power of two, in any summation
+    order. x is 0 or 1; each weight column has at most 8 non-zeros, ±16
+    in W1, ±1 in W2 and ±2^-10 in W3; b1 and b2 are multiples of 16. So
+    every hidden pre-activation is 0 or at least 16 in magnitude, where
+    tanh-GELU is exactly the identity or 0, and every hidden activation
+    is an integer of at most 8 significant bits, exact in bf16. Two
+    implementations can then differ only by the ulps of their final
+    ``expf`` -- a wrong fragment map or descriptor shows at once."""
+    rng = np.random.default_rng(seed)
+
+    def sparse(k: int, n: int, scale: float) -> np.ndarray:
+        w = np.zeros((k, n), np.float32)
+        for col in range(n):
+            nz = rng.choice(k, size=min(8, k), replace=False)
+            w[nz, col] = rng.choice([-1.0, 1.0], size=nz.size) * scale
+        return w
+
+    arrays = {
+        "w1": sparse(window, hidden, 16.0),
+        "b1": 16.0 * rng.integers(-2, 3, hidden),
+        "w2": sparse(hidden, hidden, 1.0),
+        "b2": 16.0 * rng.integers(-2, 3, hidden),
+        "w3": sparse(hidden, horizon, 2.0 ** -10),
+        "b3": rng.integers(-8, 9, horizon) / 8.0,
+    }
+    params = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in arrays.items()}
+    x = torch.from_numpy(rng.integers(0, 2, (rows, window)).astype(np.float32))
+    return params, x
 
 
 def forecast_forward(params: Params, x: torch.Tensor) -> torch.Tensor:

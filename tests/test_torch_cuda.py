@@ -22,6 +22,9 @@ from headlamp_tpu_torch.models.forecast import (
 
 #: Kernel against its plain version, max-abs (chip_smoke.py's bound).
 KERNEL_TOL = 1e-3
+#: Kernel against its plain version on ff.exact_inputs, where every bf16
+#: operand, product and partial sum is exact: only expf's ulps differ.
+EXACT_TOL = 1e-6
 #: Params after 5 Adam steps on the card against the same steps on the
 #: CPU, max-abs: the devices sum in another order and nothing else.
 STEP_TOL = 1e-4
@@ -53,23 +56,54 @@ def _rows(rows, window, device):
 
 
 @pytest.mark.parametrize(
-    "rows,window,hidden,horizon",
+    "batches,window,hidden,horizon",
     [
-        (65, 32, 128, 8),      # one full 64-row tile and a one-row tail
-        (300, 5, 20, 3),       # widths that fill no warp; ragged tail
-        (129, 128, 128, 128),  # every dimension at the guard's limit
-        (7, 1, 1, 1),
+        # The 64-row tiles' edges at the main path's widths, up to more
+        # tiles than the grid's warpgroups take in one pass.
+        ((1, 63, 64, 65, 127, 128, 129, 4097), 32, 128, 8),
+        ((300,), 5, 20, 3),        # widths that fill no fragment; ragged tail
+        ((129,), 128, 128, 128),   # every dimension at the guard's limit
+        ((7,), 1, 1, 1),           # arrays below one 16-byte bulk copy
     ],
 )
-def test_kernel_matches_plain_version(cuda, rows, window, hidden, horizon):
+def test_kernel_matches_plain_version(cuda, batches, window, hidden, horizon):
     params = _params(window, hidden, horizon, cuda)
-    x = _rows(rows, window, cuda)
-    before = ff.LAUNCHES.n
-    got = ff.forecast_forward(params, x)
-    assert ff.LAUNCHES.n == before + 1
-    want = ff.forecast_forward_reference(params, x)
-    assert got.shape == (rows, horizon) and got.device.type == "cuda"
-    assert float((got - want).abs().max()) <= KERNEL_TOL
+    for rows in batches:
+        x = _rows(rows, window, cuda)
+        before = ff.LAUNCHES.n
+        got = ff.forecast_forward(params, x)
+        assert ff.LAUNCHES.n == before + 1
+        want = ff.forecast_forward_reference(params, x)
+        assert got.shape == (rows, horizon) and got.device.type == "cuda"
+        err = float((got - want).abs().max())
+        print(f"kernel vs plain ({rows}, {window}, {hidden}, {horizon}): max-abs {err:.3g}")
+        assert err <= KERNEL_TOL, rows
+
+
+@pytest.mark.parametrize(
+    "rows,window,hidden,horizon",
+    [(4097, 32, 128, 8), (300, 5, 20, 3), (129, 128, 128, 128)],
+)
+def test_kernel_exact_arithmetic(cuda, rows, window, hidden, horizon):
+    # A wrong wgmma descriptor or fragment map moves outputs by far more
+    # than the 1e-6 left to expf here.
+    params, x = ff.exact_inputs(window, hidden, horizon, rows, seed=rows)
+    params = {k: v.to(cuda) for k, v in params.items()}
+    got = ff.forecast_forward_cuda(params, x.to(cuda))
+    want = ff.forecast_forward_reference(params, x.to(cuda))
+    err = float((got - want).abs().max())
+    print(f"exact inputs ({rows}, {window}, {hidden}, {horizon}): max-abs {err:.3g}")
+    assert err <= EXACT_TOL
+
+
+def test_wrapper_rejects_misaligned_operands(cuda):
+    params = _params(32, 128, 8, cuda)
+    buf = torch.zeros(4 * 32 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ff.forecast_forward_cuda(params, buf[1:].view(4, 32))
+    shifted = torch.zeros(128 * 128 + 1, device=cuda)[1:].view(128, 128)
+    with pytest.raises(ValueError, match="w2 must start"):
+        ff.forecast_forward_cuda(dict(params, w2=shifted), buf[:-1].view(4, 32))
 
 
 def test_wrapper_rejects_bad_operands(cuda):
