@@ -1,6 +1,7 @@
+#!/usr/bin/env python3
 """Where the forecaster kernel's time goes, by ablation, on a CUDA card.
 
-    python -m headlamp_tpu_torch.kernels.ablation [--rows 64 4096 16384]
+    python3 chip_ablation.py [--rows 64 4096 16384]
 
 Builds ``forecast_mlp.cu`` as it is and in variants that each take one
 part out (by text substitution on the source, so a variant can never
@@ -11,8 +12,9 @@ what each part costs: the tanh-GELU epilogues, the bf16 conversion pass,
 the weights' bulk copies, the tiles' own path (``weights_only`` skips
 every tile), a second warpgroup per block, and the launch of a block of
 this size (``no_layers`` returns at once).
-Prints one line per variant and a JSON object with every median. Its
-device timer, :func:`time_device_ms`, is chip_smoke.py's too.
+Prints one line per variant and a JSON object with every median, timed
+with chip_smoke.py's device timer. A diagnostic, not part of the
+package: a substitution that no longer matches the kernel's text raises.
 """
 
 from __future__ import annotations
@@ -20,14 +22,15 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
 import subprocess
 import sys
-from typing import Any, Callable
+from pathlib import Path
 
 import torch
 
-from . import build
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from chip_smoke import time_device_ms  # noqa: E402
+from headlamp_tpu_torch.kernels import build  # noqa: E402
 
 #: (name, [(text in forecast_mlp.cu, replacement), ...]).
 VARIANTS: list[tuple[str, list[tuple[str, str]]]] = [
@@ -45,8 +48,6 @@ VARIANTS: list[tuple[str, list[tuple[str, str]]]] = [
                     "  if (a.B > 0) return;\n"
                     "  float* sx = reinterpret_cast<float*>(smem + P::kX + wg * P::kXTile);")]),
 ]
-TIMED_CALLS = 200
-SPIN_CYCLES = 200_000_000
 
 
 def variant_source(source: str, subs: list[tuple[str, str]]) -> str:
@@ -80,26 +81,6 @@ def build_variants() -> dict[str, ctypes.CDLL]:
         lib.forecast_mlp_forward.restype = ctypes.c_int
         libs[name] = lib
     return libs
-
-
-def time_device_ms(fn: Callable[[], Any]) -> tuple[float, float]:
-    """(median, mean) device time of one call over TIMED_CALLS calls
-    after warm-up: the median from CUDA events around each call, the
-    mean from one event pair around all of them. A GPU spin is queued
-    ahead of the timed calls, so they run back to back on the device and
-    the events time the device, not the host's enqueue."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_CALLS + 1)]
-    torch.cuda._sleep(SPIN_CYCLES)
-    marks[0].record()
-    for mark in marks[1:]:
-        fn()
-        mark.record()
-    torch.cuda.synchronize()
-    per_call = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    return statistics.median(per_call), marks[0].elapsed_time(marks[-1]) / TIMED_CALLS
 
 
 def main(argv: list[str] | None = None) -> int:

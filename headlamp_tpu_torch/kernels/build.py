@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, at first use, into ``_build/<sha256 of source and flags>/``
 next to this file, and loads with ``ctypes``. A source compiled once is
-a cache hit afterwards; an edited source gets a new directory. No
+a cache hit afterwards, with nvcc's ptxas report read back from beside
+the library; an edited source gets a new directory. No
 PyTorch headers are involved, so a build takes seconds. A failed build
 raises with nvcc's output; nothing falls back to another path.
 """
@@ -43,7 +44,7 @@ class BuildInfo:
     library: Path
     seconds: float      #: nvcc wall time; 0.0 on a cache hit
     cache_hit: bool
-    log: str            #: nvcc's stderr (ptxas report); "" on a cache hit
+    log: str            #: nvcc's stderr (ptxas report), kept beside the library
 
 
 def find_nvcc() -> str:
@@ -71,12 +72,16 @@ def build(name: str) -> BuildInfo:
     ).hexdigest()
     out_dir = BUILD_DIR / digest
     library = out_dir / f"lib{name}.so"
-    if library.is_file():
-        return BuildInfo(library, 0.0, True, "")
+    log = out_dir / f"lib{name}.log"
+    if library.is_file() and log.is_file():
+        return BuildInfo(library, 0.0, True, log.read_text())
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Build under a private name and rename: concurrent builds of the
-    # same source never load a half-written library.
-    partial = out_dir / f".lib{name}.{os.getpid()}.{threading.get_ident()}.so"
+    # Build under private names and rename, the log first: concurrent
+    # builds of the same source never load a half-written library, and a
+    # library on disk always has its ptxas report beside it.
+    private = f"{os.getpid()}.{threading.get_ident()}"
+    partial = out_dir / f".lib{name}.{private}.so"
+    partial_log = out_dir / f".lib{name}.{private}.log"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [find_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(source)],
@@ -91,6 +96,8 @@ def build(name: str) -> BuildInfo:
             f"nvcc failed to build {source.name} (exit {proc.returncode}):\n"
             f"{proc.stderr}{proc.stdout}"
         )
+    partial_log.write_text(proc.stderr)
+    os.replace(partial_log, log)
     os.replace(partial, library)
     return BuildInfo(library, seconds, False, proc.stderr)
 

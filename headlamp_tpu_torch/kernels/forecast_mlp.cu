@@ -20,7 +20,8 @@
 // accurate tanhf of a tile's GELUs (about 2.6 us, issue-bound: each
 // thread of the tile's warpgroup runs 128 of them), the bulk copies' latency, the
 // bf16 conversion of the weights (about 0.7 us) and three dependent wgmma
-// chains (kernels/ablation.py measures each part on the card). The
+// chains (chip_ablation.py at the repo root measures each part on the
+// card). The
 // design attacks what it can:
 //
 // - Tensor cores. Each layer is a chain of wgmma.mma_async (m64n128k16,

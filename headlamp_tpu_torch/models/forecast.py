@@ -298,10 +298,14 @@ def _infer_recent(
     params: Params, series: torch.Tensor, cfg: ForecastConfig
 ) -> torch.Tensor:
     """Predict the next horizon from each trace's latest window: the
-    fused kernel on a CUDA device, its plain version on the CPU."""
+    fused kernel on a CUDA device, its plain version on the CPU. The
+    window is copied into fresh storage: the kernel's bulk copies need x
+    on a 16-byte boundary, and a one-trace slice counts as contiguous
+    while it starts ``length - window`` floats into the series."""
     from .fused_forward import forecast_forward
 
-    return forecast_forward(params, series[:, -cfg.window:].contiguous())
+    recent = series[:, -cfg.window:].clone(memory_format=torch.contiguous_format)
+    return forecast_forward(params, recent)
 
 
 def fetch_host(preds: torch.Tensor, mse: torch.Tensor) -> tuple[np.ndarray, float]:

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..kernels import build
@@ -144,41 +143,6 @@ def forecast_forward_cuda(params: Params, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"forecast_mlp_forward launch failed: {reason} ({err})")
     LAUNCHES.n += 1
     return out
-
-
-def exact_inputs(
-    window: int, hidden: int, horizon: int, rows: int, seed: int = 0
-) -> tuple[Params, torch.Tensor]:
-    """Params and x (f32, on the CPU) on which the forward's arithmetic is
-    exact up to the last sigmoid: every bf16 operand, product and f32
-    partial sum is a small multiple of a power of two, in any summation
-    order. x is 0 or 1; each weight column has at most 8 non-zeros, ±16
-    in W1, ±1 in W2 and ±2^-10 in W3; b1 and b2 are multiples of 16. So
-    every hidden pre-activation is 0 or at least 16 in magnitude, where
-    tanh-GELU is exactly the identity or 0, and every hidden activation
-    is an integer of at most 8 significant bits, exact in bf16. Two
-    implementations can then differ only by the ulps of their final
-    ``expf`` -- a wrong fragment map or descriptor shows at once."""
-    rng = np.random.default_rng(seed)
-
-    def sparse(k: int, n: int, scale: float) -> np.ndarray:
-        w = np.zeros((k, n), np.float32)
-        for col in range(n):
-            nz = rng.choice(k, size=min(8, k), replace=False)
-            w[nz, col] = rng.choice([-1.0, 1.0], size=nz.size) * scale
-        return w
-
-    arrays = {
-        "w1": sparse(window, hidden, 16.0),
-        "b1": 16.0 * rng.integers(-2, 3, hidden),
-        "w2": sparse(hidden, hidden, 1.0),
-        "b2": 16.0 * rng.integers(-2, 3, hidden),
-        "w3": sparse(hidden, horizon, 2.0 ** -10),
-        "b3": rng.integers(-8, 9, horizon) / 8.0,
-    }
-    params = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in arrays.items()}
-    x = torch.from_numpy(rng.integers(0, 2, (rows, window)).astype(np.float32))
-    return params, x
 
 
 def forecast_forward(params: Params, x: torch.Tensor) -> torch.Tensor:

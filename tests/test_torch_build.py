@@ -45,6 +45,28 @@ class TestBuild:
         assert first.library.parent.parent == tmp_path / "_build"
         assert len(first.library.parent.name) == 64  # sha256 hex digest
 
+    def test_cache_hit_keeps_the_ptxas_report(self, tmp_path, monkeypatch):
+        # A cache hit returns the report of the build that made the
+        # library, so a spill check holds on a warm build directory too;
+        # a library whose report is gone is built again.
+        nvcc = self._fake_nvcc(
+            tmp_path,
+            'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n'
+            'echo "ptxas info : Used 90 registers, 0 bytes spill stores, '
+            '0 bytes spill loads" >&2\n',
+        )
+        monkeypatch.setattr(build, "find_nvcc", lambda: nvcc)
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+        first = build.build("forecast_mlp")
+        second = build.build("forecast_mlp")
+        assert second.cache_hit and second.log == first.log
+        assert "0 bytes spill stores" in second.log
+        (first.library.parent / "libforecast_mlp.log").unlink()
+        third = build.build("forecast_mlp")
+        assert not third.cache_hit and third.log == first.log
+        assert sorted(p.name for p in first.library.parent.iterdir()) == [
+            "libforecast_mlp.log", "libforecast_mlp.so"]
+
     def test_flags_target_hopper(self):
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
         assert "--use_fast_math" not in build.NVCC_FLAGS

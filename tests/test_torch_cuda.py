@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import exact_inputs
+from headlamp_tpu_torch.metrics.client import UtilizationHistory
 from headlamp_tpu_torch.models import forecast as tf
 from headlamp_tpu_torch.models import fused_forward as ff
 from headlamp_tpu_torch.models.forecast import (
@@ -19,10 +21,14 @@ from headlamp_tpu_torch.models.forecast import (
     init_params,
     synthetic_telemetry,
 )
+from headlamp_tpu_torch.models.service import (
+    forecast_from_history,
+    forecast_from_history_incremental,
+)
 
 #: Kernel against its plain version, max-abs (chip_smoke.py's bound).
 KERNEL_TOL = 1e-3
-#: Kernel against its plain version on ff.exact_inputs, where every bf16
+#: Kernel against its plain version on exact_inputs, where every bf16
 #: operand, product and partial sum is exact: only expf's ulps differ.
 EXACT_TOL = 1e-6
 #: Params after 5 Adam steps on the card against the same steps on the
@@ -87,7 +93,7 @@ def test_kernel_matches_plain_version(cuda, batches, window, hidden, horizon):
 def test_kernel_exact_arithmetic(cuda, rows, window, hidden, horizon):
     # A wrong wgmma descriptor or fragment map moves outputs by far more
     # than the 1e-6 left to expf here.
-    params, x = ff.exact_inputs(window, hidden, horizon, rows, seed=rows)
+    params, x = exact_inputs(window, hidden, horizon, rows, seed=rows)
     params = {k: v.to(cuda) for k, v in params.items()}
     got = ff.forecast_forward_cuda(params, x.to(cuda))
     want = ff.forecast_forward_reference(params, x.to(cuda))
@@ -104,6 +110,24 @@ def test_wrapper_rejects_misaligned_operands(cuda):
     shifted = torch.zeros(128 * 128 + 1, device=cuda)[1:].view(128, 128)
     with pytest.raises(ValueError, match="w2 must start"):
         ff.forecast_forward_cuda(dict(params, w2=shifted), buf[:-1].view(4, 32))
+
+
+def test_one_chip_forecast_runs_the_kernel(cuda):
+    # One chip, 61 samples: the latest window is a contiguous slice that
+    # starts 116 bytes into the series, so the path must copy it to an
+    # aligned x before the kernel's bulk copies read it.
+    series = synthetic_telemetry(1, 61, device="cpu")
+    history = UtilizationHistory(keys=[("node-0", "0")], series=series.tolist(), step_s=60,
+                                 end=0.0, resolved_query="tensorcore_utilization")
+    before = ff.LAUNCHES.n
+    cold, state = forecast_from_history_incremental(history, device=cuda)
+    warm, _ = forecast_from_history_incremental(history, state=state, device=cuda)
+    plain = forecast_from_history(history, device=cuda)
+    assert ff.LAUNCHES.n == before + 3
+    assert [v.inference_path for v in (cold, warm, plain)] == ["cuda", "cuda-warm", "cuda"]
+    want = ff.forecast_forward_reference(state.params, series[:, -32:].to(cuda))[0]
+    assert abs(cold.chips[0].predicted_peak - float(want.max())) <= KERNEL_TOL
+    assert abs(cold.chips[0].predicted_mean - float(want.mean())) <= KERNEL_TOL
 
 
 def test_wrapper_rejects_bad_operands(cuda):

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no module of it, nor chip_smoke.py,
-imports JAX, optax or the JAX package, and the package imports with all
+"""The PyTorch port stands alone: no module of it, nor chip_smoke.py or
+chip_ablation.py, imports JAX, optax or the JAX package, and the package imports with all
 three blocked."""
 
 import ast
@@ -27,8 +27,10 @@ def _package_sources() -> list[Path]:
 
 def _source_groups() -> dict[str, list[Path]]:
     """Sources by subpackage ("." for the package's own top level), plus
-    chip_smoke.py on its own."""
-    groups: dict[str, list[Path]] = {"chip_smoke.py": [REPO / "chip_smoke.py"]}
+    each card script at the root on its own."""
+    groups: dict[str, list[Path]] = {
+        name: [REPO / name] for name in ("chip_smoke.py", "chip_ablation.py")
+    }
     for path in _package_sources():
         parts = path.relative_to(PORT).parts
         groups.setdefault(parts[0] if len(parts) > 1 else ".", []).append(path)

@@ -3,11 +3,15 @@
 The kernel (``kernels/forecast_mlp.cu``) runs only on the card; its
 tests there are in tests/test_torch_cuda.py. Here, with the same numpy
 inputs, the port's forward on the CPU is held against JAX ``forward``
-and the interpret-mode Pallas kernel at the kernel's tile edges (64-row
-tiles) and odd widths; a numpy model of the tensor core's summation
-order shows why the card's 1e-3 bound holds; the exact-arithmetic inputs
-the card tests use are shown exact; and the source and flags are held to
-the Hopper design. Tolerances (``pytest -s`` prints the measured gaps):
+and the interpret-mode Pallas kernel at the batches of the kernel's tile
+edges (64-row tiles) and at odd widths. On the CPU the forward is the
+plain version, which has no tiles: the edge batches pin its batch
+handling, and the card tests carry the tiles themselves. A numpy model
+of the tensor core's summation order shows why the card's 1e-3 bound
+holds; the exact-arithmetic inputs the card checks use are shown exact;
+the path hands the kernel an aligned x even for one trace; and the
+source and flags are held to the Hopper design. Tolerances (``pytest
+-s`` prints the measured gaps):
 - forward vs JAX and Pallas: max-abs 1e-4, the port's forward bound;
 - tensor-core order vs the plain version: 1e-3, the card's bound;
 - exact inputs, plain version vs a float64 model: 1e-6 (expf ulps).
@@ -18,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import exact_inputs
 from headlamp_tpu.models import forecast as jf
 from headlamp_tpu.models.pallas_forward import forecast_forward_pallas
-from headlamp_tpu_torch.kernels import ablation, build
+from headlamp_tpu_torch.kernels import build
+from headlamp_tpu_torch.models import forecast as tf
 from headlamp_tpu_torch.models import fused_forward as ff
 from headlamp_tpu_torch.models.convert import params_from_jax
 
@@ -49,30 +55,29 @@ def _case(window, hidden, horizon, rows, seed=0):
 
 
 @pytest.mark.parametrize(
-    "rows,window,hidden,horizon",
+    "batches,window,hidden,horizon",
     [
-        (1, 32, 128, 8),       # one row of one tile
-        (63, 32, 128, 8),      # one short tile
-        (64, 32, 128, 8),      # exactly one tile: the demo page's 64 chips
-        (65, 32, 128, 8),      # a tile and a one-row tail
-        (129, 32, 128, 8),     # two tiles and a tail
-        (300, 5, 20, 3),       # widths that fill no fragment
-        (7, 1, 1, 1),          # arrays below one 16-byte bulk copy
-        (65, 128, 128, 128),   # every width at the guard's limit
+        # One row, a short tile, one tile (the demo page's 64 chips), a
+        # tile and a one-row tail, two tiles and a tail.
+        ((1, 63, 64, 65, 129), 32, 128, 8),
+        ((300,), 5, 20, 3),        # widths that fill no fragment
+        ((7,), 1, 1, 1),           # arrays below one 16-byte bulk copy
+        ((65,), 128, 128, 128),    # every width at the guard's limit
     ],
 )
-def test_forward_matches_jax_and_pallas_at_tile_edges(rows, window, hidden, horizon):
-    params, x = _case(window, hidden, horizon, rows, seed=rows + window)
-    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+def test_forward_matches_jax_and_pallas_at_tile_edges(batches, window, hidden, horizon):
     cfg = jf.ForecastConfig(window=window, hidden=hidden, horizon=horizon)
-    ref = np.asarray(jf.forward(jparams, x))
-    pal = np.asarray(forecast_forward_pallas(jparams, x, cfg, interpret=True))
-    got = ff.forecast_forward(params_from_jax(params, "cpu"), torch.from_numpy(x)).numpy()
-    assert got.shape == (rows, horizon)
-    gaps = (np.abs(got - ref).max(), np.abs(got - pal).max())
-    print(f"rows={rows} widths=({window},{hidden},{horizon}): "
-          f"vs jax {gaps[0]:.3g}, vs pallas interpret {gaps[1]:.3g}")
-    assert max(gaps) <= FORWARD_TOL
+    for rows in batches:
+        params, x = _case(window, hidden, horizon, rows, seed=rows + window)
+        jparams = {k: jnp.asarray(v) for k, v in params.items()}
+        ref = np.asarray(jf.forward(jparams, x))
+        pal = np.asarray(forecast_forward_pallas(jparams, x, cfg, interpret=True))
+        got = ff.forecast_forward(params_from_jax(params, "cpu"), torch.from_numpy(x)).numpy()
+        assert got.shape == (rows, horizon)
+        gaps = (np.abs(got - ref).max(), np.abs(got - pal).max())
+        print(f"rows={rows} widths=({window},{hidden},{horizon}): "
+              f"vs jax {gaps[0]:.3g}, vs pallas interpret {gaps[1]:.3g}")
+        assert max(gaps) <= FORWARD_TOL, rows
 
 
 def _bf16(a):
@@ -107,7 +112,7 @@ def test_tensor_core_summation_order_stays_within_the_card_bound():
 
 
 def test_exact_inputs_leave_only_the_final_expf():
-    params, x = ff.exact_inputs(32, 128, 8, 4097, seed=5)
+    params, x = exact_inputs(32, 128, 8, 4097, seed=5)
     p64 = {k: v.numpy().astype(np.float64) for k, v in params.items()}
     x64 = x.numpy().astype(np.float64)
     pre1 = x64 @ p64["w1"] + p64["b1"]
@@ -145,7 +150,28 @@ def test_kernel_source_is_the_hopper_design():
                    "mbarrier.try_wait.parity", "pallas_forward.py"):
         assert needle in src, needle
     assert "fmaf(" not in src  # no scalar-FMA matmul loop is left
-    for _, subs in ablation.VARIANTS:  # the ablation script still applies
-        assert ablation.variant_source(src, subs) != src or not subs
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in flag or "fast-math" in flag for flag in build.NVCC_FLAGS)
+
+
+def test_one_trace_window_reaches_the_kernel_aligned(monkeypatch):
+    # One trace of 61 samples: its last 32 are a contiguous slice 29
+    # floats (116 bytes) into the series. The fit entries must hand the
+    # forward a copy on a 16-byte boundary, which the kernel's bulk
+    # copies need and its wrapper checks.
+    seen = []
+    real = ff.forecast_forward
+
+    def checked(params, x):
+        seen.append(ff._check_operands(params, x))
+        return real(params, x)
+
+    monkeypatch.setattr(ff, "forecast_forward", checked)
+    series = tf.synthetic_telemetry(1, 61, device="cpu")
+    assert series[:, -32:].is_contiguous() and series[:, -32:].data_ptr() % ff.ALIGN
+    preds, cold, state = tf.fit_and_forecast_incremental(series, steps=2, device="cpu")
+    _, warm, _ = tf.fit_and_forecast_incremental(series, state=state, warm_steps=1, device="cpu")
+    out, _ = tf.fit_and_forecast_with_dispatch(series, steps=2, device="cpu")
+    assert (cold.path, warm.path) == ("torch", "torch-warm")
+    assert seen == [(1, 32, 128, 8)] * 3
+    np.testing.assert_allclose(out.numpy(), preds, rtol=0, atol=0)
