@@ -8,8 +8,10 @@ holds it against its plain PyTorch version on the card at the 64-row
 tiles' edges and on exact-arithmetic inputs, times it beside the launch
 floor, its plain version and the library chain, then drives the port's main
 path — the metrics page with its forecast, through the CLI entry point,
-the forecast at fleet scale and the forecast of a single chip — and
-checks that each went through the kernel. It exits non-zero at the first failure, and without CUDA or
+the forecast at fleet scale, the forecast of a single chip, and the
+dashboard host serving the metrics page over a socket (cold fit, stale
+page with a background warm refit, blocking warm refit, concurrent cold
+requests) — and checks that each went through the kernel. It exits non-zero at the first failure, and without CUDA or
 without the package beside it. The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -22,6 +24,9 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable
 
@@ -65,6 +70,12 @@ SCALE_LAUNCHES = 2
 #: alignment unless the path copies it. One cold and one warm
 #: incremental fit, then one plain cold fit.
 ONE_CHIP_LAUNCHES = 3
+#: The dashboard host's launches: a cold request, the background warm
+#: refit after the TTL, the blocking warm refit past the grace window,
+#: and one fit for four concurrent requests on a fresh app.
+SERVE_LAUNCHES = 4
+#: Requests per paint time the host's phase reports (p50 of each).
+SERVE_TIMED = 5
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -86,6 +97,15 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def http_get(url: str) -> tuple[int, str]:
+    """(status, body) of one GET over the socket."""
+    try:
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
 
 
 def profile_device(torch: Any, fn: Callable[[], Any]) -> tuple[float, int, list]:
@@ -177,6 +197,148 @@ def bound_ms(rows: int, window: int, hidden: int, horizon: int) -> tuple[float, 
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def dashboard_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> int:
+    """Step 9: ``DashboardApp`` on the card, served on 127.0.0.1 and
+    driven over the socket by urllib, its TTL clock a list cell. Checks
+    each request's launches and copies, prints the paint times, and
+    returns the kernel launches of the checked requests."""
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    mono = [1000.0]
+    metrics_gets = 0
+
+    def forecast_view(app: Any) -> Any:
+        m = app._cached_metrics()
+        return app._forecast_refresher.peek(app._metrics_key(m), epoch=app._cache_epoch)
+
+    def get_metrics(server: Any) -> tuple[int, str]:
+        nonlocal metrics_gets
+        metrics_gets += 1
+        return http_get(server.url + "/tpu/metrics")
+
+    warm_carries.invalidate()
+    LAUNCHES.reset()
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       monotonic=lambda: mono[0])
+    server = app.serve("127.0.0.1", 0)
+    try:
+        t0 = time.perf_counter()
+        status, body = get_metrics(server)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        view = forecast_view(app)
+        check(status == 200, f"cold GET /tpu/metrics answered {status}")
+        check("inference via CUDA kernel (H100)." in body, "the page does not name the CUDA path")
+        check(view.inference_path == "cuda" and len(view.chips) == 64,
+              f"cold view: path {view.inference_path}, {len(view.chips)} chips")
+        check(LAUNCHES.n == 1, f"the cold request launched the kernel {LAUNCHES.n} times")
+        check(app.last_request_device_gets == 1,
+              f"the cold request made {app.last_request_device_gets} device-to-host copies")
+        traces = json.loads(http_get(server.url + "/debug/traces")[1])["traces"]
+        spans: dict[str, float] = {}
+        stack = list(traces[0]["spans"])
+        while stack:
+            node = stack.pop(0)
+            spans[node["name"]] = node["duration_ms"]
+            stack.extend(node["children"])
+        print(f"serve: cold GET {cold_ms:.1f} ms, trace {traces[0]['duration_ms']} ms, "
+              f"spans {spans}; launches 1, device-to-host copies 1")
+
+        mono[0] += app.FORECAST_TTL_S + 1  # stale, inside the grace window
+        status, body = get_metrics(server)
+        check(status == 200 and "CUDA kernel (H100)." in body, "the stale page was not served")
+        check(app._forecast_refresher.drain(), "the background refit did not finish")
+        status, body = get_metrics(server)
+        view = forecast_view(app)
+        check(status == 200 and "CUDA kernel (H100), warm-start fit." in body,
+              "the refreshed page does not name the warm CUDA path")
+        check(view.inference_path == "cuda-warm" and view.carried_from_generation == 0
+              and view.warm_demotion_reason is None,
+              f"background refit: path {view.inference_path}, generation "
+              f"{view.carried_from_generation}, demotion {view.warm_demotion_reason}")
+        check(LAUNCHES.n == 2, f"after the background refit the kernel ran {LAUNCHES.n} times")
+
+        mono[0] += app.FORECAST_GRACE_S + 1  # past the grace window: blocks
+        status, body = get_metrics(server)
+        view = forecast_view(app)
+        check(status == 200 and view.inference_path == "cuda-warm",
+              f"blocking refit: status {status}, path {view.inference_path}")
+        check(LAUNCHES.n == 3, f"after the blocking refit the kernel ran {LAUNCHES.n} times")
+
+        health = json.loads(http_get(server.url + "/healthz")[1])["runtime"]
+        device = health["device"]
+        check(device["name"] == torch.cuda.get_device_name(0)
+              and device["kernel"] == "forecast_mlp_forward" and device["kernel_path"] == "cuda",
+              f"/healthz device block {device}")
+        carries = health["warm_carries"]
+        check(carries["hits"] >= 2, f"/healthz warm carries {carries}")
+        for name, block in health["refresh"].items():
+            check(block["refit_errors"] == 0, f"{name} refresher: {block}")
+        print(f"serve: /healthz device {device}; warm_carries {carries}")
+    finally:
+        server.close()
+
+    # Four concurrent requests on a fresh app with a cold key: one fit.
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       monotonic=lambda: mono[0])
+    server = app.serve("127.0.0.1", 0)
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            statuses = [s for s, _ in pool.map(lambda _: get_metrics(server), range(4))]
+        refits = app._forecast_refresher.snapshot()["refits"]
+        check(statuses == [200] * 4, f"concurrent GETs answered {statuses}")
+        check(refits == 1, f"four concurrent cold GETs ran {refits} fits")
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    serve_launches = LAUNCHES.n
+    print(f"serve: 4 concurrent cold GETs -> {refits} fit; dashboard host "
+          f"forecast_mlp_forward launches={serve_launches} (want {SERVE_LAUNCHES})")
+    check(serve_launches == SERVE_LAUNCHES,
+          f"the dashboard host launched the kernel {serve_launches} times, not {SERVE_LAUNCHES}")
+
+    # Paint times over the socket: cold (a fresh app, no carry), warm
+    # refit (past the grace window, blocking) and cached (within the TTL).
+    paint_ms: dict[str, list[float]] = {"cold": [], "warm_refit": [], "cached": []}
+
+    def timed_get(server: Any, kind: str) -> None:
+        t0 = time.perf_counter()
+        status, _ = get_metrics(server)
+        paint_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        check(status == 200, f"{kind} paint answered {status}")
+
+    for _ in range(SERVE_TIMED):
+        warm_carries.invalidate()
+        server = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                              monotonic=lambda: mono[0]).serve("127.0.0.1", 0)
+        try:
+            timed_get(server, "cold")
+        finally:
+            server.close()
+    server = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                          monotonic=lambda: mono[0]).serve("127.0.0.1", 0)
+    try:
+        get_metrics(server)
+        for _ in range(SERVE_TIMED):
+            mono[0] += DashboardApp.FORECAST_GRACE_S + 1
+            timed_get(server, "warm_refit")
+        for _ in range(SERVE_TIMED):
+            timed_get(server, "cached")
+        metricsz = http_get(server.url + "/metricsz")[1]
+    finally:
+        server.close()
+    line = 'headlamp_tpu_torch_requests_total{route="/tpu/metrics",status="200"} '
+    served = [ln for ln in metricsz.splitlines() if ln.startswith(line)]
+    check(served == [f"{line}{metrics_gets}"], f"/metricsz reads {served}, want {metrics_gets}")
+    p50 = {k: statistics.median(v) for k, v in paint_ms.items()}
+    print(f"serve: /tpu/metrics over the socket, demo large, p50 of {SERVE_TIMED}: "
+          f"cold {p50['cold']:.1f} ms, warm refit {p50['warm_refit']:.1f} ms, "
+          f"cached {p50['cached']:.1f} ms; all {json.dumps(paint_ms)}; "
+          f"requests_total {metrics_gets}; on {smi}")
+    return serve_launches
+
+
 def main() -> int:
     import torch
 
@@ -210,7 +372,7 @@ def main() -> int:
         forecast_from_history,
         forecast_from_history_incremental,
     )
-    from headlamp_tpu_torch.server.demo import make_demo_transport
+    from headlamp_tpu_torch.server import make_demo_transport
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -428,6 +590,9 @@ def main() -> int:
         for name, ms in top:
             print(f"  {ms:8.3f} ms  {name[:100]}")
 
+    # 9. The dashboard host over a socket.
+    serve_launches = dashboard_host_phase(torch, clock, smi)
+
     # 8. The record.
     at = timings[SCALE_CHIPS]
     print('kernels: ["forecast_mlp_forward"]')
@@ -436,10 +601,11 @@ def main() -> int:
         "route": "cuda",
         "source": "headlamp_tpu_torch/kernels/forecast_mlp.cu",
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
-        "launches": page_launches + scale_launches + one_launches,
+        "launches": page_launches + scale_launches + one_launches + serve_launches,
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
-                             "forecast_1_chip": one_launches},
+                             "forecast_1_chip": one_launches,
+                             "dashboard_host": serve_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -1,4 +1,4 @@
-"""headlamp_tpu_torch — the dashboard's metrics-page forecast on PyTorch and CUDA.
+"""headlamp_tpu_torch — the dashboard's metrics page and its forecast on PyTorch and CUDA.
 
 The PyTorch counterpart of ``headlamp_tpu``, built for an NVIDIA H100.
 Module paths mirror the JAX package (``metrics/client.py`` here is
@@ -14,7 +14,13 @@ reference and nothing here imports it or JAX.
 - ``fleet``      — deterministic TPU fleet fixtures.
 - ``metrics``    — Prometheus client: discovery, batched instant queries,
                    range-query utilization history.
-- ``server``     — demo transports with synthetic Prometheus series.
+- ``server``     — the HTTP dashboard host
+                   (``python -m headlamp_tpu_torch.server --demo large``)
+                   and demo transports with synthetic Prometheus series.
+- ``runtime``    — stale-while-revalidate refresher, warm-carry store and
+                   device-to-host transfer funnel behind the host.
+- ``obs``        — request tracing and the ``/metricsz`` registry.
+- ``registration`` — the routes the host serves.
 - ``ui``/``pages`` — element tree, components and the metrics page.
 - ``cli``        — ``python -m headlamp_tpu_torch.cli metrics --demo large``.
 """

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..runtime import transfer
 
 Params = dict[str, torch.Tensor]
 
@@ -220,15 +221,18 @@ def _train(
     the warm fit this loop from a carry, so the two never train
     different models. Returns new (params, opt_state, final MSE); the
     inputs are copied, never modified. The MSE is taken at the RETURNED
-    params (one more loss after the last step), as a device scalar."""
+    params (one more loss after the last step), as a device scalar.
+    Grad mode is per thread, so the loop turns it on for itself: a
+    server's request and refit threads may call it from any mode."""
     model = ForecastMLP(params)
     state = _clone_adam(opt_state, x.device)
     live = model.as_params()
     weights = list(live.values())
-    for _ in range(steps):
-        loss = loss_fn(live, x, y)
-        grads = torch.autograd.grad(loss, weights)
-        adam_update_(live, dict(zip(live, grads)), state, cfg.learning_rate)
+    with torch.enable_grad():
+        for _ in range(steps):
+            loss = loss_fn(live, x, y)
+            grads = torch.autograd.grad(loss, weights)
+            adam_update_(live, dict(zip(live, grads)), state, cfg.learning_rate)
     fitted = model.detached_params()
     with torch.no_grad():
         final = loss_fn(fitted, x, y)
@@ -309,8 +313,9 @@ def _infer_recent(
 
 
 def fetch_host(preds: torch.Tensor, mse: torch.Tensor) -> tuple[np.ndarray, float]:
-    """Predictions and the fit MSE to the host in ONE device copy."""
-    host = torch.cat((preds.reshape(-1), mse.reshape(1).to(preds.dtype))).cpu()
+    """Predictions and the fit MSE to the host in ONE device copy,
+    through the transfer funnel, which counts it."""
+    host = transfer.fetch(torch.cat((preds.reshape(-1), mse.reshape(1).to(preds.dtype))))
     return host[:-1].reshape(preds.shape).numpy(), float(host[-1])
 
 
@@ -398,7 +403,7 @@ def fit_and_forecast_incremental(
     series = _as_series(series, dev)
     n_chips, length = series.shape
     if length < cfg.window + cfg.horizon:
-        preds = _repeat_last(series, cfg.horizon).cpu().numpy()
+        preds = transfer.fetch(_repeat_last(series, cfg.horizon)).numpy()
         return preds, InferenceDispatch("repeat"), state
 
     path = _inference_path(dev)

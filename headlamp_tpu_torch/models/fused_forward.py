@@ -24,6 +24,7 @@ every operand to start on a 16-byte boundary.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -39,13 +40,21 @@ ALIGN = 16
 
 class LaunchCount:
     """Kernel launches since the last :meth:`reset`; a run can show with
-    it that its path went through the kernel."""
+    it that its path went through the kernel. Request threads and
+    background refits launch concurrently, so every update holds a lock
+    and their launches add up exactly."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.n = 0
 
+    def add(self) -> None:
+        with self._lock:
+            self.n += 1
+
     def reset(self) -> None:
-        self.n = 0
+        with self._lock:
+            self.n = 0
 
 
 #: Launches of ``forecast_mlp_forward``, counted where it is launched.
@@ -69,20 +78,30 @@ def forecast_forward_reference(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 _lib: ctypes.CDLL | None = None
+_build_info: build.BuildInfo | None = None
+_lib_lock = threading.Lock()
 
 
 def _library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernel's C interface."""
-    global _lib
-    if _lib is None:
-        lib, _ = build.load("forecast_mlp")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.forecast_mlp_forward.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-        lib.forecast_mlp_forward.restype = i32
-        lib.forecast_mlp_error_string.argtypes = [i32]
-        lib.forecast_mlp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    """Build (first use) and bind the kernel's C interface, once even
+    when several threads launch first at the same time."""
+    global _lib, _build_info
+    with _lib_lock:
+        if _lib is None:
+            lib, _build_info = build.load("forecast_mlp")
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.forecast_mlp_forward.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+            lib.forecast_mlp_forward.restype = i32
+            lib.forecast_mlp_error_string.argtypes = [i32]
+            lib.forecast_mlp_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def kernel_build_info() -> build.BuildInfo | None:
+    """How this process got the kernel's library (built or a cache hit,
+    nvcc's seconds), or None before its first launch."""
+    return _build_info
 
 
 def _check_operands(params: Params, x: torch.Tensor) -> tuple[int, int, int, int]:
@@ -129,6 +148,9 @@ def forecast_forward_cuda(params: Params, x: torch.Tensor) -> torch.Tensor:
     if batch == 0:
         return out
     lib = _library()
+    # The current stream is per thread: a request or refit thread
+    # launches on the stream its own fit's torch ops ran on, so the
+    # kernel is ordered after the ops that made its operands.
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.forecast_mlp_forward(
@@ -141,7 +163,7 @@ def forecast_forward_cuda(params: Params, x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         reason = lib.forecast_mlp_error_string(err).decode()
         raise RuntimeError(f"forecast_mlp_forward launch failed: {reason} ({err})")
-    LAUNCHES.n += 1
+    LAUNCHES.add()
     return out
 
 

@@ -20,6 +20,8 @@ import numpy as np
 
 from ..device import DeviceLike, resolve_device
 from ..metrics.client import UtilizationHistory, fetch_utilization_history
+from ..obs.trace import span
+from ..runtime import transfer
 from .forecast import (
     WARM_STEPS,
     ForecastConfig,
@@ -126,7 +128,7 @@ def forecast_from_history(
         # Predictions and the fit-quality scalar in one device copy.
         preds_host, fit_mse = fetch_host(preds, dispatch.fit_mse)
     else:
-        preds_host, fit_mse = preds.cpu().numpy(), None
+        preds_host, fit_mse = transfer.fetch(preds).numpy(), None
     fit_ms = round((time.perf_counter() - t0) * 1000, 1)
     return _summarize(history, cfg, preds_host, dispatch, fit_ms, fit_mse)
 
@@ -189,10 +191,16 @@ def forecast_from_history_incremental(
     cfg = cfg or ForecastConfig()
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    preds, dispatch, new_state = fit_and_forecast_incremental(
-        np.asarray(history.series, dtype=np.float32), cfg,
-        state=state, steps=steps, warm_steps=warm_steps, init=init, device=dev,
-    )
+    with span(
+        "forecast.fit", series=len(history.series), steps=steps, warm=state is not None
+    ) as fit_span:
+        preds, dispatch, new_state = fit_and_forecast_incremental(
+            np.asarray(history.series, dtype=np.float32), cfg,
+            state=state, steps=steps, warm_steps=warm_steps, init=init, device=dev,
+        )
+        if fit_span is not None:
+            fit_span.attrs["inference_path"] = dispatch.path
+            fit_span.attrs["data_source"] = dispatch.data_source
     fit_ms = round((time.perf_counter() - t0) * 1000, 1)
     fit_mse = None if dispatch.fit_mse is None else float(dispatch.fit_mse)
     view = _summarize(history, cfg, preds, dispatch, fit_ms, fit_mse)
@@ -214,7 +222,8 @@ def compute_forecast_incremental(
     dev = resolve_device(device)
     if metrics is None or not metrics.chips:
         return None, state
-    history = _fetch_history(transport, metrics, clock)
+    with span("forecast.history"):
+        history = _fetch_history(transport, metrics, clock)
     if history is None:
         return None, state
     return forecast_from_history_incremental(history, state=state, device=dev)

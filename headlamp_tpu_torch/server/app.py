@@ -1,0 +1,441 @@
+"""Dashboard HTTP host: the metrics page with its forecast, over a socket.
+
+The port's counterpart of ``headlamp_tpu/server/app.py``, trimmed to the
+metrics path. It serves, over stdlib ``http.server``:
+
+- ``GET /tpu/metrics``        the metrics page with its utilization
+  forecast, fit on the app's device and served by the fused CUDA kernel
+  ``forecast_mlp_forward`` on a card (its plain version on the CPU);
+- ``GET /refresh?back=<url>`` invalidate the metrics and forecast caches,
+  then redirect to a registered route;
+- ``GET /healthz``            liveness and the runtime counters, as JSON;
+- ``GET /metricsz``           Prometheus text self-exposition;
+- ``GET /debug/traces``       recent request traces, as JSON.
+
+Every other path is a 404. The metrics fetch and the forecast sit behind
+two stale-while-revalidate refreshers: the first request for a fleet
+fits cold, and after the TTL a stale page is served at once while one
+background refit warm-starts from the process-wide carry
+(``runtime.device_cache.warm_carries``).
+
+The cluster snapshot context, the gateway, push, replication, workers,
+SLOs, fragments, the history store, the incident timeline and every page
+other than metrics are not part of this host; ``/healthz`` leaves out
+the keys of the JAX host's that describe them.
+"""
+
+from __future__ import annotations
+
+import html
+import json
+import threading
+import time
+from functools import lru_cache
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable
+from urllib.parse import parse_qs, urlparse
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..metrics.client import TpuMetricsSnapshot, fetch_tpu_metrics
+from ..models.fused_forward import LAUNCHES, kernel_build_info
+from ..models.service import ForecastView, compute_forecast_incremental
+from ..obs.metrics import TEXT_CONTENT_TYPE
+from ..obs.metrics import registry as metrics_registry
+from ..obs.trace import span, trace_request, trace_ring
+from ..registration import Registry, register_plugin
+from ..runtime.device_cache import warm_carries
+from ..runtime.refresh import Refresher
+from ..runtime.transfer import TransferBatch, transfer_stats
+from ..transport.api_proxy import Transport
+from ..ui import render_html
+from .style import STYLESHEET
+
+#: Paths the host answers itself, outside the registry.
+_OWN_ROUTES = ("/healthz", "/refresh", "/metricsz", "/debug/traces")
+
+#: Route labels whose traces stay out of the ring: a probe polling
+#: /healthz or a scraper on /metricsz would evict every page trace, and
+#: tracing /debug/traces would make the ring describe itself. Their
+#: request metrics still count.
+_RING_EXCLUDED = frozenset({"/healthz", "/metricsz", "/debug/traces"})
+
+
+@lru_cache(maxsize=64)
+def _nav_html(entries: tuple[tuple[str, str], ...], active: str) -> str:
+    """Sidebar nav markup, memoized per (entries, active route): the
+    entry set is fixed once the plugin is registered."""
+    return "".join(
+        f'<a href="{url}"' + (' class="active"' if url == active else "") + f">{label}</a>"
+        for url, label in entries
+    )
+
+
+class DashboardApp:
+    """The dashboard host's request handling, without sockets
+    (:meth:`handle`), plus :meth:`serve` to put it on one.
+
+    ``device`` is where the forecast fits and runs: CUDA unless the
+    caller asks for ``"cpu"``; without CUDA the constructor raises.
+    ``clock`` (wall time) is only for displayed timestamps and the
+    Prometheus range-query bounds; ``monotonic`` drives every TTL and
+    age, so tests advance a list cell instead of sleeping."""
+
+    #: Forecasts are fresh this long: the history grid gains a point per
+    #: step, and the fit must not run on every page view.
+    FORECAST_TTL_S = 60.0
+    #: Past the TTL but within this total age, a forecast is served at
+    #: once while a background worker refits; only a key idle longer
+    #: than this pays a blocking fit.
+    FORECAST_GRACE_S = 600.0
+    #: Instant metrics fetches are cached briefly too.
+    METRICS_TTL_S = 5.0
+    METRICS_GRACE_S = 60.0
+
+    def __init__(
+        self,
+        transport: Transport,
+        *,
+        device: DeviceLike = None,
+        registry: Registry | None = None,
+        clock: Callable[[], float] = time.time,
+        monotonic: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self._device = resolve_device(device)
+        self._transport = transport
+        self._registry = registry if registry is not None else register_plugin()
+        self._clock = clock
+        self._metrics_refresher = Refresher(
+            "metrics", ttl_s=self.METRICS_TTL_S, grace_s=self.METRICS_GRACE_S,
+            monotonic=monotonic,
+        )
+        self._forecast_refresher = Refresher(
+            "forecast", ttl_s=self.FORECAST_TTL_S, grace_s=self.FORECAST_GRACE_S,
+            monotonic=monotonic,
+        )
+        #: Warm-start carries per forecast key, for the whole process: a
+        #: rebuilt app warm-starts from what the process already learned.
+        self._warm_forecast_states = warm_carries
+        #: Guards the epoch and the request counters below (request
+        #: threads update them concurrently).
+        self._lock = threading.Lock()
+        #: Bumped by /refresh. Cache entries record the epoch current when
+        #: their compute started; a mismatch invalidates them without
+        #: touching the refreshers' locks, so the redirect never waits
+        #: behind a fit.
+        self._cache_epoch = 0
+        self.requests_served = 0
+        self.request_device_gets = 0
+        #: Device-to-host copies the last request waited for: 1 on a cold
+        #: or blocking metrics request on the card, 0 on a cached paint.
+        self.last_request_device_gets = 0
+        # Get-or-create: many apps in one process share the instruments.
+        self._req_hist = metrics_registry.histogram(
+            "headlamp_tpu_torch_request_duration_seconds",
+            "End-to-end handle() latency per route template (non-5xx responses).",
+            labels=("route",),
+        )
+        self._req_total = metrics_registry.counter(
+            "headlamp_tpu_torch_requests_total",
+            "Requests served, by route template and status code.",
+            labels=("route", "status"),
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def _home(self) -> str:
+        """Where /refresh returns by default: the first registered page."""
+        return self._registry.routes[0].path
+
+    # ------------------------------------------------------------------
+    # Metrics and forecast, behind the refreshers
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _metrics_key(metrics: TpuMetricsSnapshot) -> Any:
+        """Forecast cache key: the Prometheus target and the chip set.
+        Sample values change every scrape; a forecast is wrong for the
+        fleet only when the chips themselves change."""
+        return (
+            metrics.namespace,
+            metrics.service,
+            frozenset((c.node, c.accelerator_id) for c in metrics.chips),
+        )
+
+    def _cached_metrics(self) -> TpuMetricsSnapshot | None:
+        """``fetch_tpu_metrics`` behind its refresher. A failed fetch
+        (None) is cached too, so a down Prometheus is not probed on every
+        view. The epoch is read before the fetch: a /refresh arriving
+        mid-fetch leaves the entry born stale."""
+        r = self._metrics_refresher
+        # Re-read per call: the class attributes are operator and test knobs.
+        r.ttl_s = self.METRICS_TTL_S
+        r.grace_s = max(self.METRICS_GRACE_S, self.METRICS_TTL_S)
+        return r.get(
+            "metrics",
+            lambda: fetch_tpu_metrics(self._transport, clock=self._clock),
+            epoch=self._cache_epoch,
+        )
+
+    def _forecast_for(self, metrics: TpuMetricsSnapshot | None) -> ForecastView | None:
+        """Forecast view for the metrics page, or None when there are no
+        chips or no usable history. A fit that raises propagates: the
+        page answers 500 naming it, and never drops the forecast panel
+        in silence."""
+        if metrics is None or not metrics.chips:
+            return None
+        r = self._forecast_refresher
+        r.ttl_s = self.FORECAST_TTL_S
+        r.grace_s = max(self.FORECAST_GRACE_S, self.FORECAST_TTL_S)
+        return r.get(
+            self._metrics_key(metrics),
+            lambda: self._compute_forecast(metrics),
+            epoch=self._cache_epoch,
+        )
+
+    def _metrics_and_forecast(self) -> tuple[TpuMetricsSnapshot | None, ForecastView | None]:
+        with span("page.data.metrics"):
+            metrics = self._cached_metrics()
+        with span("page.data.forecast"):
+            forecast = self._forecast_for(metrics)
+        return metrics, forecast
+
+    def _compute_forecast(self, metrics: TpuMetricsSnapshot) -> ForecastView | None:
+        """One fit for ``metrics``' chip set, warm from the process carry
+        when there is one. The carry is taken, not read, so it feeds one
+        fit at a time; the new carry is stored back. A fit that raises
+        left the taken carry untouched (the fit clones what it is
+        handed), so it is stored back before the error propagates."""
+        key = self._metrics_key(metrics)
+        state = self._warm_forecast_states.take(key)
+        try:
+            view, new_state = compute_forecast_incremental(
+                self._transport, metrics, state=state, clock=self._clock, device=self._device
+            )
+        except BaseException:
+            if state is not None:
+                self._warm_forecast_states.store(key, state)
+            raise
+        if new_state is not None:
+            self._warm_forecast_states.store(key, new_state)
+        if view is not None and view.warm_demotion_reason is not None:
+            self._forecast_refresher.note_demotion()
+        return view
+
+    # ------------------------------------------------------------------
+    # Request handling
+    # ------------------------------------------------------------------
+
+    def _route_label(self, path: str) -> str:
+        """Bounded-cardinality route label: unknown paths collapse to
+        'other', so a scanner walking random paths mints no new labels."""
+        route_path = urlparse(path).path.rstrip("/") or "/tpu"
+        if route_path in _OWN_ROUTES or self._registry.route_for(route_path) is not None:
+            return route_path
+        return "other"
+
+    def handle(self, path: str) -> tuple[int, str, str]:
+        """(status, content_type, body) for a GET; for a 302 the content
+        type slot holds the Location. Never raises: an exception becomes
+        a 500 page that names it. Each request runs in its own transfer
+        batch, which counts the device-to-host copies it waits for, and
+        its own trace, which lands in the trace ring."""
+        t0 = time.perf_counter()
+        route_label = self._route_label(path)
+        batch = TransferBatch()
+        status = 500
+        recorded = route_label not in _RING_EXCLUDED
+        with trace_request(path, enabled=recorded, wall=self._clock) as trace:
+            try:
+                with batch.scope():
+                    status, content_type, body = self._handle(path)
+                    return status, content_type, body
+            except Exception as e:  # noqa: BLE001 — the request's error boundary
+                body = self._page_html(
+                    "Error",
+                    "<div class='hl-error' role='alert'>Internal error: "
+                    f"{html.escape(type(e).__name__)}: {html.escape(str(e))}</div>",
+                )
+                return 500, "text/html", body
+            finally:
+                with self._lock:
+                    self.requests_served += 1
+                    self.request_device_gets += batch.blocking_gets
+                    self.last_request_device_gets = batch.blocking_gets
+                # A 5xx counts in requests_total only: a fast error is not
+                # a good latency observation.
+                if status < 500:
+                    self._req_hist.observe(time.perf_counter() - t0, route=route_label)
+                self._req_total.inc(route=route_label, status=str(status))
+                if trace is not None:
+                    trace.finish(route=route_label, status=status, device_gets=batch.blocking_gets)
+                    trace_ring.record(trace.to_dict())
+
+    def _handle(self, path: str) -> tuple[int, str, str]:
+        parsed = urlparse(path)
+        route_path = parsed.path.rstrip("/") or "/tpu"
+
+        if route_path == "/healthz":
+            return 200, "application/json", json.dumps(
+                {"ok": True, "runtime": self._runtime_health()}
+            )
+        if route_path == "/metricsz":
+            return 200, TEXT_CONTENT_TYPE, metrics_registry.render()
+        if route_path == "/debug/traces":
+            return 200, "application/json", json.dumps(
+                {"capacity": trace_ring.capacity, "traces": trace_ring.snapshot()}
+            )
+        if route_path == "/refresh":
+            # The user asks for fresh data: bump the epoch, so every
+            # cached metrics and forecast entry is stale from now on.
+            with self._lock:
+                self._cache_epoch += 1
+            back = parse_qs(parsed.query).get("back", [self._home])[0]
+            # Only registered route paths may be redirect targets: no open
+            # redirects ('//evil', absolute URLs), no header injection.
+            if self._registry.route_for(back) is None:
+                back = self._home
+            return 302, back, ""
+
+        route = self._registry.route_for(route_path)
+        if route is None:
+            return 404, "text/html", self._page_html("Not Found", "<p>No such page.</p>")
+        with span("page.data", kind=route.kind):
+            metrics, forecast = self._metrics_and_forecast()
+        with span("page.component", kind=route.kind):
+            el = route.component(metrics, forecast)
+        with span("render.html"):
+            body = self._page_html(route.name, render_html(el), route_path)
+        return 200, "text/html", body
+
+    def _page_html(self, title: str, body: str, active: str = "") -> str:
+        nav = _nav_html(
+            tuple((e.url, e.label) for e in self._registry.sidebar_entries if e.parent is not None),
+            active,
+        )
+        refresh = f'<a class="hl-refresh" href="/refresh?back={active or self._home}">Refresh</a>'
+        return (
+            "<!doctype html><html><head><meta charset='utf-8'>"
+            f"<title>{title} · TPU Dashboard</title>"
+            f"<style>{STYLESHEET}</style></head>"
+            f"<body><nav class='hl-nav'>{nav}{refresh}</nav>"
+            f"<main>{body}</main></body></html>"
+        )
+
+    def _runtime_health(self) -> dict[str, Any]:
+        """The /healthz runtime block: device-to-host copies paid, the
+        warm carries, both refreshers, and the device with its kernel."""
+        return {
+            "transfer": transfer_stats.snapshot(),
+            "warm_carries": {
+                **self._warm_forecast_states.counters(),
+                "entries": len(self._warm_forecast_states),
+            },
+            "refresh": {
+                r.name: r.snapshot() for r in (self._metrics_refresher, self._forecast_refresher)
+            },
+            "device": self._device_health(),
+        }
+
+    def _device_health(self) -> dict[str, Any]:
+        """Where the forecast runs: the torch device, the card's name (on
+        a card), the inference path, the kernel's launches in this
+        process and how its library was obtained (None before the first
+        launch)."""
+        dev = self._device
+        info = kernel_build_info()
+        out: dict[str, Any] = {"torch_device": str(dev)}
+        if dev.type == "cuda":
+            out["name"] = torch.cuda.get_device_name(dev)
+        out.update(
+            kernel="forecast_mlp_forward",
+            kernel_path="cuda" if dev.type == "cuda" else "torch",
+            launches=LAUNCHES.n,
+            build=None if info is None else {
+                "cache_hit": info.cache_hit, "seconds": round(info.seconds, 3),
+            },
+        )
+        return out
+
+    # ------------------------------------------------------------------
+    # Lifetime
+    # ------------------------------------------------------------------
+
+    def serve(self, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
+        """Serve this app on ``(host, port)``; see :func:`serve`."""
+        return serve(self, host, port)
+
+    def close(self, timeout_s: float = 30.0) -> None:
+        """Wait for every refit in flight and join its thread, drop the
+        process's warm carries and wait for the card's queued work, so
+        nothing this app started is still running. Raises TimeoutError
+        if a refit outlives ``timeout_s``."""
+        for r in (self._metrics_refresher, self._forecast_refresher):
+            if not r.drain(timeout_s):
+                raise TimeoutError(f"the {r.name} refresher's refits outlived {timeout_s} s")
+        self._warm_forecast_states.invalidate()
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
+
+class DashboardServer:
+    """A :class:`DashboardApp` serving on a socket, from a thread of its
+    own; :func:`serve` starts one."""
+
+    def __init__(self, app: DashboardApp, httpd: ThreadingHTTPServer) -> None:
+        self.app = app
+        self._httpd = httpd
+        self._thread = threading.Thread(
+            target=httpd.serve_forever, name="hl-torch-serve", daemon=True
+        )
+        self._thread.start()
+
+    @property
+    def url(self) -> str:
+        host, port = self._httpd.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def wait(self) -> None:
+        """Block until the server stops (for a process that only serves)."""
+        self._thread.join()
+
+    def close(self, timeout_s: float = 30.0) -> None:
+        """Stop accepting, close the socket, join the request threads,
+        then close the app: its refits drained, the warm carries
+        dropped and no CUDA work left in flight."""
+        self._httpd.shutdown()
+        self._thread.join()
+        # ThreadingHTTPServer blocks on close: server_close joins every
+        # request thread it started.
+        self._httpd.server_close()
+        self.app.close(timeout_s)
+
+
+def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
+    """Bind ``(host, port)`` (port 0 picks a free one) and serve ``app``
+    on a ``ThreadingHTTPServer``, one thread per request. Returns the
+    running server; its ``close()`` stops everything it started."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self) -> None:  # noqa: N802 (http.server API)
+            status, content_type, body = app.handle(self.path)
+            if status == 302:
+                self.send_response(302)
+                self.send_header("Location", content_type)
+                self.end_headers()
+                return
+            data = body.encode()
+            self.send_response(status)
+            self.send_header("Content-Type", f"{content_type}; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args: Any) -> None:
+            pass
+
+    return DashboardServer(app, ThreadingHTTPServer((host, port), Handler))

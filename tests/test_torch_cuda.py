@@ -193,3 +193,35 @@ def test_fit_on_card_matches_cpu(cuda):
     print(f"card vs CPU fit: preds max-abs {pred_diff:.3g}, mse rel {mse_rel:.3g}; "
           f"CPU vs CPU on a one-ulp nudge: {noise_pred:.3g}, {noise_mse:.3g}")
     assert pred_diff <= FIT_TOL and mse_rel <= FIT_TOL
+
+
+def test_dashboard_host_round_trip_on_card(cuda):
+    # The server on the card: a cold GET fits once through the kernel,
+    # and after the TTL a background refit warm-starts from the carry.
+    import urllib.request
+
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    warm_carries.invalidate()
+    mono = [0.0]
+    app = DashboardApp(make_demo_transport("v5e4"), device=cuda, monotonic=lambda: mono[0])
+    server = app.serve("127.0.0.1", 0)
+
+    def view():
+        m = app._cached_metrics()
+        return app._forecast_refresher.peek(app._metrics_key(m), epoch=app._cache_epoch)
+
+    try:
+        before = ff.LAUNCHES.n
+        with urllib.request.urlopen(server.url + "/tpu/metrics", timeout=120) as resp:
+            assert resp.status == 200
+        assert ff.LAUNCHES.n == before + 1 and view().inference_path == "cuda"
+        assert app.last_request_device_gets == 1
+        mono[0] += app.FORECAST_TTL_S + 1
+        with urllib.request.urlopen(server.url + "/tpu/metrics", timeout=120) as resp:
+            assert resp.status == 200
+        assert app._forecast_refresher.drain()
+        assert ff.LAUNCHES.n == before + 2 and view().inference_path == "cuda-warm"
+    finally:
+        server.close()
