@@ -11,8 +11,13 @@ path — the metrics page with its forecast, through the CLI entry point,
 the forecast at fleet scale, the forecast of a single chip, and the
 dashboard host serving the metrics page over a socket (cold fit, stale
 page with a background warm refit, blocking warm refit, concurrent cold
-requests) — and checks that each went through the kernel. It exits non-zero at the first failure, and without CUDA or
-without the package beside it. The last line is one JSON object:
+requests) — and checks that each went through the kernel. Then the
+cluster dashboard: the fleet rollup on the card against its Python
+oracle at 256 to 16384 nodes (timed, with its upload and its kernels
+counted), and the host serving the five snapshot pages over a socket at
+``--demo large``, each request's device-to-host copies held to what the
+code implies. It exits non-zero at the first failure, and without CUDA
+or without the package beside it. The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -76,6 +81,25 @@ ONE_CHIP_LAUNCHES = 3
 SERVE_LAUNCHES = 4
 #: Requests per paint time the host's phase reports (p50 of each).
 SERVE_TIMED = 5
+#: Fleet sizes the rollup is held to its oracle and timed at
+#: (``fleet_large(n)``; about 7/8 of the nodes are TPU hosts).
+ROLLUP_NODES = (256, 1024, 4096, 16384)
+#: Rollups timed per size (p50), and Python passes.
+ROLLUP_TIMED = 21
+PYTHON_TIMED = 5
+#: The snapshot pages and the section title each must show.
+SNAPSHOT_PAGES = {
+    "/tpu": "Chip Allocation",
+    "/tpu/nodes": "TPU Nodes",
+    "/tpu/pods": "All TPU Pods",
+    "/tpu/deviceplugins": "Plugin Pods",
+    "/tpu/topology": "Slice Summary",
+}
+#: bench.py's four-page paint, in its order.
+FOUR_PAGES = ("/tpu", "/tpu/nodes", "/tpu/topology", "/tpu/pods")
+#: The cluster dashboard path's kernel launches: its one metrics GET
+#: (a fit), which feeds the topology heatmap's peek.
+CLUSTER_LAUNCHES = 1
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -339,6 +363,235 @@ def dashboard_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> in
     return serve_launches
 
 
+def device_event_names(torch: Any, fn: Callable[[], Any]) -> list[str]:
+    """Names of the device events (kernels, copies, sets) one call of
+    ``fn`` makes, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def p50_ms(fn: Callable[[], Any], n: int) -> float:
+    """Median host time of ``n`` calls of ``fn`` (each ends on the host)."""
+    samples = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def fleet_rollup_phase(torch: Any, smi: str) -> list[dict[str, Any]]:
+    """Step 10: the fleet rollup on the card against ``python_fleet_stats``,
+    exactly, at each of ROLLUP_NODES; its p50 on cached columns (dispatch
+    plus the one copy), its device time, the Python pass's p50, the
+    encode and the upload, its device events per call, and its bound."""
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.analytics.encode import encode_fleet
+    from headlamp_tpu_torch.analytics.fleet_torch import (
+        COLUMNS,
+        fleet_rollup,
+        rollup_to_dict,
+    )
+    from headlamp_tpu_torch.domain.accelerator import classify_fleet
+    from headlamp_tpu_torch.fleet import fleet_large
+    from headlamp_tpu_torch.runtime.device_cache import DeviceFleetCache, _to_device
+
+    dev = torch.device("cuda")
+    rows = []
+    for n in ROLLUP_NODES:
+        fleet = fleet_large(n)
+        view = classify_fleet(fleet["nodes"], fleet["pods"])["tpu"]
+        view.version = 1
+        t0 = time.perf_counter()
+        host_cols = encode_fleet(view.nodes, view.pods)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        upload_ms = p50_ms(lambda: _to_device(host_cols, dev), 5)
+        cache = DeviceFleetCache(dev)
+        check(cache.warm(view), f"no upload at {n} nodes")
+        got = stats.fleet_stats(view, device=dev, fleet_cache=cache, backend="cuda")
+        want = stats.python_fleet_stats(view)
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        check(got.keys() == want.keys() and not bad,
+              f"cuda rollup differs from the oracle at {n} nodes in {bad}")
+        cols = cache.fleet_for(view)
+        rollup_ms = p50_ms(lambda: rollup_to_dict(cols, dev), ROLLUP_TIMED)
+        python_ms = p50_ms(lambda: stats.python_fleet_stats(view), PYTHON_TIMED)
+        tensors = [getattr(cols, name) for name in COLUMNS]
+        device_ms, _ = time_device_ms(lambda: fleet_rollup(*tensors))
+        events = device_event_names(torch, lambda: rollup_to_dict(cols, dev))
+        kernels = [e for e in events if not e.startswith(("Memcpy", "Memset"))]
+        nbytes = 4 * (5 * cols.n_nodes_padded + 4 * cols.n_pods_padded)
+        row = dict(
+            nodes=n, tpu_nodes=len(view.nodes), pods=len(view.pods),
+            n_pad=cols.n_nodes_padded, p_pad=cols.n_pods_padded,
+            rollup_ms=rollup_ms, device_ms=device_ms, python_ms=python_ms,
+            encode_ms=encode_ms, upload_ms=upload_ms,
+            kernels=len(kernels), device_events=len(events),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        )
+        rows.append(row)
+        print(f"rollup: {n} nodes ({row['tpu_nodes']} TPU, {row['pods']} pods; pad "
+              f"{row['n_pad']}/{row['p_pad']}): equal to python_fleet_stats; p50 rollup_ms="
+              f"{rollup_ms:.4f} (dispatch + one copy), device_ms={device_ms:.6f}, "
+              f"python_ms={python_ms:.4f}, encode_ms={encode_ms:.2f}, upload_ms={upload_ms:.4f}, "
+              f"bound_ms={row['bound_ms']:.6f} (bytes); {len(kernels)} kernels and "
+              f"{len(events)} device events per rollup")
+    names: dict[str, int] = {}
+    for name in kernels:
+        short = name.split("<")[0].split("(")[0].removeprefix("void ")
+        names[short] = names.get(short, 0) + 1
+    print(f"rollup: kernels of one rollup at {ROLLUP_NODES[-1]} nodes, by name: {names}")
+    wins = [r["nodes"] for r in rows if r["rollup_ms"] < r["python_ms"]]
+    tie = rows[1]["rollup_ms"] / (rows[1]["python_ms"] / rows[1]["tpu_nodes"])
+    print(f"rollup: the cuda rollup beats the Python pass at {wins} nodes of {list(ROLLUP_NODES)}; "
+          f"measured at {ROLLUP_NODES[1]} nodes the two tie near {tie:.0f} TPU nodes "
+          f"(floor {stats.DEVICE_ROLLUP_MIN_NODES}); on {smi}")
+    print(json.dumps({"device_programs": [{"name": "fleet_rollup", "route": "torch ops",
+                                           "replaces": "headlamp_tpu/analytics/fleet_jax.py:98",
+                                           "by_nodes": rows}]}))
+    return rows
+
+
+def cluster_dashboard_phase(torch: Any, clock: Callable[[], float], smi: str) -> int:
+    """Step 11: the host at --demo large on the card, over the socket:
+    the five snapshot pages, the calibrating cold paint, the copies of a
+    coalesced paint and of a paint after the sync interval, the topology
+    heatmap from the metrics peek, and the pages' paint p50s. Returns
+    the kernel launches of the path."""
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs.trace import trace_ring
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    def span_attrs(name: str) -> dict[str, Any]:
+        stack = list(trace_ring.snapshot()[0]["spans"])
+        while stack:
+            node = stack.pop(0)
+            if node["name"] == name:
+                return node["attrs"]
+            stack.extend(node["children"])
+        raise SmokeFailure(f"the last request's trace has no {name} span")
+
+    def main_of(body: str) -> str:
+        return body[body.index("<main>"):]
+
+    stats.calibration.reset()
+    mono = [5000.0]
+    transport = make_demo_transport("large")
+    app = DashboardApp(transport, device="cuda", clock=clock, monotonic=lambda: mono[0])
+    cache = app._ctx.fleet_cache
+
+    def relists() -> int:
+        return sum(c == "/api/v1/nodes?limit=500" for c in transport.calls)
+
+    LAUNCHES.reset()
+    server = app.serve("127.0.0.1", 0)
+    try:
+        t0 = time.perf_counter()
+        status, body = http_get(server.url + "/tpu")
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        check(status == 200 and "Chip Allocation" in body, f"cold GET /tpu answered {status}")
+        rollup = span_attrs("analytics.rollup")
+        counters = cache.counters()
+        print(f"cluster: cold GET /tpu {cold_ms:.1f} ms: analytics.rollup backend "
+              f"{rollup.get('backend')}, fleet_cache {rollup.get('fleet_cache')}; rollups "
+              f"{counters['hits'] + counters['misses']}, uploads {counters['uploads']}, "
+              f"device-to-host copies {app.last_request_device_gets}; calibration "
+              f"{stats.calibration.backend} {stats.calibration.device_ms:.4f} ms vs python "
+              f"{stats.calibration.python_ms_per_node * 1e3:.3f} us/node, crossover "
+              f"{stats.calibration.crossover_nodes():.0f} nodes")
+        check(rollup.get("backend") == "cuda" and rollup.get("fleet_cache") == "miss",
+              f"the cold /tpu rollup span reads {rollup}")
+        check(counters["hits"] + counters["misses"] == 4 and counters["uploads"] == 1
+              and app.last_request_device_gets == 4,
+              f"the calibrating paint: {counters}, copies {app.last_request_device_gets}")
+        n_tpu = len(app._last_snapshot.provider("tpu").nodes)
+        check(stats.chosen_backend(n_tpu, "cuda") == "cuda",
+              f"the measured winner at {n_tpu} nodes is {stats.chosen_backend(n_tpu, 'cuda')}")
+
+        lists = relists()
+        mono[0] += 1.0  # inside the sync interval: the snapshot and its stats
+        status, _ = http_get(server.url + "/tpu")
+        check(status == 200 and app.last_request_device_gets == 0 and relists() == lists
+              and cache.counters()["uploads"] == 1,
+              f"coalesced paint: copies {app.last_request_device_gets}, "
+              f"re-lists {relists() - lists}, {cache.counters()}")
+        mono[0] += 5.0  # past it: one re-list, a new version, its upload
+        status, _ = http_get(server.url + "/tpu")
+        check(status == 200 and app.last_request_device_gets == 1 and relists() == lists + 1
+              and cache.counters()["uploads"] == 2
+              and span_attrs("analytics.rollup").get("backend") == "cuda",
+              f"paint past the interval: copies {app.last_request_device_gets}, "
+              f"re-lists {relists() - lists}, {cache.counters()}")
+        print("cluster: device-to-host copies per /tpu: calibrating 4, coalesced 0, "
+              "past the sync interval 1 (1 re-list, 1 upload)")
+
+        for path, title in SNAPSHOT_PAGES.items():
+            status, body = http_get(server.url + path)
+            check(status == 200 and title in body, f"GET {path} answered {status}")
+        check("hl-heat-" not in main_of(body), "the topology page painted a heatmap cold")
+        status, body = http_get(server.url + "/tpu/metrics")
+        check(status == 200 and "CUDA kernel (H100)" in body, f"GET /tpu/metrics answered {status}")
+        status, body = http_get(server.url + "/tpu/topology")
+        check(status == 200 and "hl-heat-" in main_of(body),
+              "the topology page did not paint the heatmap from the peek")
+        health = json.loads(http_get(server.url + "/healthz")[1])
+        print(f"cluster: five pages 200; /tpu/topology heatmap from the metrics peek; /healthz "
+              f"nodes {health['nodes']}, analytics {health['analytics']}, fleet_cache "
+              f"{health['runtime']['fleet_cache']}")
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    launches = LAUNCHES.n
+    print(f"cluster: forecast_mlp_forward launches={launches} (want {CLUSTER_LAUNCHES})")
+    check(launches == CLUSTER_LAUNCHES,
+          f"the cluster dashboard launched the kernel {launches} times, not {CLUSTER_LAUNCHES}")
+
+    # Paint times, as bench.py paints: an app that syncs on every request.
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       min_sync_interval_s=0.0)
+    server = app.serve("127.0.0.1", 0)
+    page_ms: dict[str, list[float]] = {p: [] for p in SNAPSHOT_PAGES}
+    four_ms: list[float] = []
+    try:
+        def get(path: str) -> None:
+            t0 = time.perf_counter()
+            status, _ = http_get(server.url + path)
+            page_ms[path].append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"GET {path} answered {status}")
+
+        for path in FOUR_PAGES:  # warm-up
+            http_get(server.url + path)
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            for path in FOUR_PAGES:
+                get(path)
+            four_ms.append((time.perf_counter() - t0) * 1e3)
+            get("/tpu/deviceplugins")
+    finally:
+        server.close()
+    last_tpu = next(t for t in trace_ring.snapshot() if t["path"] == "/tpu")
+    spans: dict[str, float] = {}
+    stack = list(last_tpu["spans"])
+    while stack:
+        node = stack.pop(0)
+        spans[node["name"]] = spans.get(node["name"], 0.0) + node["duration_ms"]
+        stack.extend(node["children"])
+    print(f"cluster: the last timed /tpu: handle() {last_tpu['duration_ms']} ms, spans {spans}")
+    p50 = {p: round(statistics.median(v), 1) for p, v in page_ms.items()}
+    print(f"cluster: page paint p50 of {SERVE_TIMED} over the socket, demo large, sync on "
+          f"every request: {p50}; all {json.dumps(page_ms)}; on {smi}")
+    print(f"cluster: four-page paint p50 {statistics.median(four_ms):.1f} ms "
+          f"({', '.join(FOUR_PAGES)}; {', '.join(f'{v:.1f}' for v in four_ms)})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -593,6 +846,12 @@ def main() -> int:
     # 9. The dashboard host over a socket.
     serve_launches = dashboard_host_phase(torch, clock, smi)
 
+    # 10. The fleet rollup on the card against its oracle, timed.
+    fleet_rollup_phase(torch, smi)
+
+    # 11. The cluster dashboard's pages over a socket.
+    cluster_launches = cluster_dashboard_phase(torch, clock, smi)
+
     # 8. The record.
     at = timings[SCALE_CHIPS]
     print('kernels: ["forecast_mlp_forward"]')
@@ -601,11 +860,13 @@ def main() -> int:
         "route": "cuda",
         "source": "headlamp_tpu_torch/kernels/forecast_mlp.cu",
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
-        "launches": page_launches + scale_launches + one_launches + serve_launches,
+        "launches": (page_launches + scale_launches + one_launches + serve_launches
+                     + cluster_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
-                             "dashboard_host": serve_launches},
+                             "dashboard_host": serve_launches,
+                             "cluster_dashboard": cluster_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -1,10 +1,13 @@
-"""Text-mode CLI — the metrics page with its forecast, in a terminal.
+"""Text-mode CLI — the dashboard's pages in a terminal.
 
-``python -m headlamp_tpu_torch.cli metrics --demo large`` renders the
-page the JAX package's CLI renders, through ``ui.vdom.render_text``,
-with the forecast fit on the CUDA device and served by the fused CUDA
-kernel. ``--device cpu`` runs the fit and the kernel's plain version on
-the CPU instead. Without CUDA and without ``--device cpu`` it fails.
+``python -m headlamp_tpu_torch.cli overview --demo large`` renders the
+page the JAX package's CLI renders, through ``ui.vdom.render_text``:
+``overview``, ``nodes``, ``pods``, ``deviceplugins`` and ``topology``
+from one synced cluster snapshot (the Overview's aggregates from the
+fleet rollup on the CUDA device), and ``metrics`` with the forecast fit
+on the CUDA device and served by the fused CUDA kernel. ``--device cpu``
+runs the rollup, the fit and the kernel's plain version on the CPU
+instead. Without CUDA and without ``--device cpu`` it fails.
 """
 
 from __future__ import annotations
@@ -14,16 +17,24 @@ import sys
 import time
 from typing import Callable
 
+from .context.accelerator_context import AcceleratorDataContext
 from .device import DeviceLike, resolve_device
 from .metrics.client import fetch_tpu_metrics
 from .models.service import compute_forecast
-from .pages.metrics_page import metrics_page
+from .registration import register_plugin
 from .server.demo import DEMO_FLEETS, make_demo_transport
 from .transport.api_proxy import Transport
 from .ui import render_text
 
 #: CLI page name -> route path (the pages this package renders).
-PAGES = {"metrics": "/tpu/metrics"}
+PAGES = {
+    "overview": "/tpu",
+    "nodes": "/tpu/nodes",
+    "pods": "/tpu/pods",
+    "deviceplugins": "/tpu/deviceplugins",
+    "topology": "/tpu/topology",
+    "metrics": "/tpu/metrics",
+}
 
 
 def render_page(
@@ -40,14 +51,21 @@ def render_page(
     if page not in PAGES:
         raise ValueError(f"unknown page {page!r}: choose from {sorted(PAGES)}")
     dev = resolve_device(device)
-    metrics = fetch_tpu_metrics(transport, clock=clock)
-    forecast = compute_forecast(transport, metrics, clock=clock, device=dev)
-    return render_text(metrics_page(metrics, forecast))
+    route = register_plugin().route_for(PAGES[page])
+    assert route is not None
+    if route.kind == "metrics":
+        metrics = fetch_tpu_metrics(transport, clock=clock)
+        forecast = compute_forecast(transport, metrics, clock=clock, device=dev)
+        return render_text(route.component(metrics, forecast))
+    snap = AcceleratorDataContext(transport, device=dev, clock=clock).sync()
+    if route.kind == "topology":
+        return render_text(route.component(snap))
+    return render_text(route.component(snap, now=clock()))
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="headlamp_tpu_torch.cli")
-    parser.add_argument("page", choices=sorted(PAGES), nargs="?", default="metrics")
+    parser.add_argument("page", choices=sorted(PAGES), nargs="?", default="overview")
     parser.add_argument(
         "--demo", nargs="?", const="v5p32", choices=sorted(DEMO_FLEETS), default="v5p32"
     )

@@ -1,7 +1,7 @@
 """GKE Cloud TPU constants — the TPU-side analogue of the reference's Intel
 constant block (`src/api/k8s.ts:13-31`).
 
-The names the port's TPU fixtures use, copied from
+The names the port uses, copied from
 ``headlamp_tpu/domain/constants.py``. Everything the framework knows
 about a cluster flows from these names:
 extended-resource keys on node capacity/allocatable and pod requests, and
@@ -41,5 +41,37 @@ GKE_TPU_WORKER_ID_LABEL = "cloud.google.com/gke-tpu-worker-id"
 # TPU device plugin DaemonSet
 # ---------------------------------------------------------------------------
 
+#: Label values identifying TPU device-plugin daemon pods. GKE runs the
+#: plugin in kube-system; third-party installs vary, so detection accepts
+#: any of these label pairs (mirrors the reference's 3-variant matching,
+#: `src/api/k8s.ts:271-282`).
+TPU_PLUGIN_POD_LABELS = (
+    ("k8s-app", "tpu-device-plugin"),
+    ("app", "tpu-device-plugin"),
+    ("app.kubernetes.io/name", "tpu-device-plugin"),
+)
+
 #: Namespace GKE deploys the device plugin into.
 TPU_PLUGIN_NAMESPACE = "kube-system"
+
+# ---------------------------------------------------------------------------
+# Accelerator label value -> TPU generation
+# ---------------------------------------------------------------------------
+
+#: Known gke-tpu-accelerator label values. Order matters only for docs.
+TPU_ACCELERATOR_GENERATIONS = {
+    "tpu-v4-podslice": "v4",
+    "tpu-v5-lite-podslice": "v5e",
+    "tpu-v5-lite-device": "v5e",
+    "tpu-v5p-slice": "v5p",
+    "tpu-v6e-slice": "v6e",
+}
+
+#: Human-readable generation names for UI display.
+TPU_GENERATION_DISPLAY = {
+    "v4": "TPU v4",
+    "v5e": "TPU v5e",
+    "v5p": "TPU v5p",
+    "v6e": "TPU v6e (Trillium)",
+    "unknown": "TPU (unknown gen)",
+}

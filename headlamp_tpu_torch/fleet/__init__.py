@@ -6,6 +6,7 @@ from .fixtures import (  # noqa: F401
     fleet_transport,
     fleet_v5e4,
     fleet_v5p32,
+    fleet_v5p32_degraded,
     make_plain_node,
     make_plugin_daemonset,
     make_plugin_pod,

@@ -6,11 +6,13 @@ objects:
 
 - ``fleet_v5e4``   — GKE v5e-4 single-host node pool
 - ``fleet_v5p32``  — v5p-32 multi-host pod slice: 16 chips over 4 hosts
+- ``fleet_v5p32_degraded`` — the same slice after a host drop
 - ``fleet_large``  — deterministic 1024-node stress fleet
 """
 
 from __future__ import annotations
 
+import copy
 import random
 from typing import Any
 
@@ -273,6 +275,22 @@ def fleet_v5p32() -> dict[str, Any]:
         "pods": pods + plugins,
         "daemonsets": [make_plugin_daemonset(desired=4)],
     }
+
+
+def fleet_v5p32_degraded() -> dict[str, Any]:
+    """The v5p-32 slice after a host drop: worker 3 gone entirely and
+    worker 2 NotReady — an incomplete multi-host slice, whose health
+    outranks mere unreadiness."""
+    fleet = copy.deepcopy(fleet_v5p32())
+    fleet["nodes"] = [
+        n for n in fleet["nodes"] if n["metadata"]["name"] != "gke-v5p-pool-w3"
+    ]
+    for n in fleet["nodes"]:
+        if n["metadata"]["name"] == "gke-v5p-pool-w2":
+            for c in n.get("status", {}).get("conditions", []):
+                if c.get("type") == "Ready":
+                    c["status"] = "False"
+    return fleet
 
 
 def fleet_large(n_nodes: int = 1024, seed: int = 42) -> dict[str, Any]:

@@ -290,6 +290,13 @@ class TpuMetricsSnapshot:
     #: (SURVEY.md §5 tracing carry-over).
     fetch_ms: float = 0.0
 
+    @property
+    def by_node(self) -> dict[str, list[TpuChipMetrics]]:
+        out: dict[str, list[TpuChipMetrics]] = {}
+        for chip in self.chips:
+            out.setdefault(chip.node, []).append(chip)
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Fetch + join

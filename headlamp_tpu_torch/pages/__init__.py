@@ -1,5 +1,19 @@
-"""Pages — pure functions from snapshots to element trees."""
+"""Pages — pure functions from snapshots to element trees: Overview,
+Nodes, Pods, DevicePlugins, Topology and Metrics, as in the JAX
+package."""
 
+from .device_plugins import device_plugins_page
 from .metrics_page import metrics_page
+from .nodes import nodes_page
+from .overview import overview_page
+from .pods import pods_page
+from .topology_page import topology_page
 
-__all__ = ["metrics_page"]
+__all__ = [
+    "device_plugins_page",
+    "metrics_page",
+    "nodes_page",
+    "overview_page",
+    "pods_page",
+    "topology_page",
+]

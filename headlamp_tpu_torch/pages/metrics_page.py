@@ -233,7 +233,9 @@ def metrics_page(
     metrics: TpuMetricsSnapshot | None, forecast: Any | None = None
 ) -> Element:
     children: list[Any] = [
-        fragment("cell:available", lambda: availability_matrix(metrics))
+        # The boundaries' salts come with the fragment cache, which
+        # alone reads them.
+        fragment("cell:available", None, lambda: availability_matrix(metrics))
     ]
 
     if metrics is None:
@@ -281,12 +283,12 @@ def metrics_page(
 
     if forecast is not None:
         children.append(
-            fragment("cell:forecast", lambda: forecast_section(forecast))
+            fragment("cell:forecast", None, lambda: forecast_section(forecast))
         )
 
     # One boundary per chip card, keyed as the JAX package keys them.
     children.extend(
-        fragment(f"{c.node}/{c.accelerator_id}", lambda c=c: chip_card(c))
+        fragment(f"{c.node}/{c.accelerator_id}", None, lambda c=c: chip_card(c))
         for c in metrics.chips
     )
     return h("div", {"class_": "hl-page hl-metrics"}, children)

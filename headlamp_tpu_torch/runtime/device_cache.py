@@ -1,14 +1,152 @@
-"""Process-scoped warm-start forecast carries.
+"""Device-resident fleet columns and process-scoped warm-start carries.
 
 The port's counterpart of ``headlamp_tpu/runtime/device_cache.py``'s
-``WarmCarryCache`` and ``warm_carries``. The fleet-column cache and the
-fused rollup results wait for the rollups.
+``DeviceFleetCache`` (`:68-231`), ``WarmCarryCache`` and
+``warm_carries``. The fused rollup+forecast results
+(``RollupResultCache``) wait for the fused path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Any, Hashable
+from typing import TYPE_CHECKING, Any, Hashable
+
+import numpy as np
+import torch
+
+from ..obs.metrics import registry as _metrics_registry
+from ..obs.trace import annotate as _annotate
+from ..obs.trace import span as _span
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ..analytics.encode import FleetArrays
+    from ..domain.accelerator import FleetView
+
+
+def _to_device(fleet: FleetArrays, device: torch.device) -> FleetArrays:
+    """A FleetArrays twin with every numpy column copied to ``device``.
+    Scalars (n_nodes/n_pods) and node_names stay host-side. The calling
+    thread's stream is synchronized before the twin is returned: an
+    entry is published complete, so a request thread reading it on its
+    own stream never races the copy (JAX's ``block_until_ready``)."""
+    replacements = {
+        field.name: torch.from_numpy(value).to(device)
+        for field in dataclasses.fields(fleet)
+        if isinstance(value := getattr(fleet, field.name), np.ndarray)
+    }
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return dataclasses.replace(fleet, **replacements)
+
+
+class DeviceFleetCache:
+    """Per-provider device-resident ``FleetArrays``, one entry each,
+    keyed by the view's snapshot ``version``: a warm request re-uses the
+    columns already on the device and pays the rollup and its one copy
+    only; encode and upload happen once per snapshot version.
+
+    Invalidation contract: the snapshot generation IS the key. The data
+    context that owns this cache stamps a monotone ``version`` onto every
+    ``FleetView`` it builds; a clean tick reuses the version (hit), a
+    changed fleet gets a new one (miss → re-encode + re-upload, old entry
+    dropped). Views without a version are never cached: they take the
+    encode path every call and the rollup copies their columns.
+
+    Thread-safe for the server's access pattern. The lock guards only
+    dict bookkeeping; encode + upload happen outside it, so two threads
+    racing the same cold version upload twice rather than serializing
+    every warm hit behind an upload. Failures propagate."""
+
+    def __init__(self, device: torch.device | str = "cpu") -> None:
+        self.device = torch.device(device)
+        self._lock = threading.Lock()
+        self._entries: dict[str, tuple[int, FleetArrays]] = {}
+        self.hits = 0
+        self.misses = 0
+        #: Encodes copied to the device (versioned misses and warms).
+        self.uploads = 0
+        # Process-wide instruments (get-or-create) for /metricsz; the
+        # ints above are this cache's own, for /healthz and tests.
+        self._hits_total = _metrics_registry.counter(
+            "headlamp_tpu_torch_fleet_cache_hits_total",
+            "fleet_for calls served from device-resident columns",
+        )
+        self._misses_total = _metrics_registry.counter(
+            "headlamp_tpu_torch_fleet_cache_misses_total",
+            "fleet_for calls that paid an encode (and, versioned, an upload)",
+        )
+
+    def _count(self, hit: bool) -> None:
+        with self._lock:
+            if hit:
+                self.hits += 1
+            else:
+                self.misses += 1
+        (self._hits_total if hit else self._misses_total).inc()
+
+    def _upload(self, view: FleetView) -> FleetArrays:
+        from ..analytics.encode import encode_fleet
+
+        with _span("device_cache.upload", nodes=len(view.nodes)):
+            fleet = _to_device(encode_fleet(view.nodes, view.pods), self.device)
+        with self._lock:
+            self.uploads += 1
+            self._entries[view.provider.name] = (view.version, fleet)
+        return fleet
+
+    def _current(self, view: FleetView) -> FleetArrays | None:
+        with self._lock:
+            entry = self._entries.get(view.provider.name)
+        return entry[1] if entry is not None and entry[0] == view.version else None
+
+    def fleet_for(self, view: FleetView) -> FleetArrays:
+        """The columnar fleet for ``view`` — device-resident from cache
+        when the version matches, freshly encoded (and uploaded and
+        cached when the view carries a version) otherwise. Annotates the
+        enclosing span (the rollup's) with the outcome."""
+        if view.version is None:
+            from ..analytics.encode import encode_fleet
+
+            self._count(hit=False)
+            _annotate(fleet_cache="unversioned")
+            return encode_fleet(view.nodes, view.pods)
+        fleet = self._current(view)
+        self._count(hit=fleet is not None)
+        _annotate(fleet_cache="miss" if fleet is None else "hit")
+        return fleet if fleet is not None else self._upload(view)
+
+    def warm(self, view: FleetView) -> bool:
+        """Encode + upload ``view`` now so the next request hits warm.
+        Returns True when an upload happened, False when the entry was
+        already current or the view is unversioned."""
+        if view.version is None or self._current(view) is not None:
+            return False
+        self._upload(view)
+        return True
+
+    def invalidate(self) -> None:
+        """Drop every entry (frees the device columns)."""
+        with self._lock:
+            self._entries.clear()
+
+    def counters(self) -> dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses, "uploads": self.uploads}
+
+    def snapshot(self) -> dict[str, Any]:
+        """The /healthz block."""
+        with self._lock:
+            entries = {name: version for name, (version, _f) in self._entries.items()}
+            total = self.hits + self.misses
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "uploads": self.uploads,
+                "hit_rate": round(self.hits / total, 4) if total else 0.0,
+                "entries": entries,
+                "device": str(self.device),
+            }
 
 
 class WarmCarryCache:

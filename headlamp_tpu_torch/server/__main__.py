@@ -1,6 +1,6 @@
 """Entry point: ``python -m headlamp_tpu_torch.server --demo large``.
 
-Serves a demo fleet's metrics page, with its forecast on the CUDA card,
+Serves a demo fleet's dashboard, its fleet rollup and forecast on the CUDA card,
 until interrupted. ``--device cpu`` fits on the CPU with the kernel's
 plain version instead; without CUDA and without ``--device cpu`` it
 fails at startup and never serves.
@@ -27,7 +27,7 @@ def main(argv: list[str] | None = None) -> None:
     app = DashboardApp(make_demo_transport(args.demo), device=args.device)
     server = app.serve(args.host, args.port)
     print(
-        f"TPU dashboard on {server.url}/tpu/metrics "
+        f"TPU dashboard on {server.url}/tpu "
         f"(demo fleet '{args.demo}', device {app.device})",
         flush=True,
     )

@@ -1,27 +1,39 @@
-"""Dashboard HTTP host: the metrics page with its forecast, over a socket.
+"""Dashboard HTTP host: the cluster dashboard and the metrics page, over a socket.
 
-The port's counterpart of ``headlamp_tpu/server/app.py``, trimmed to the
-metrics path. It serves, over stdlib ``http.server``:
+The port's counterpart of ``headlamp_tpu/server/app.py``. It serves,
+over stdlib ``http.server``:
 
+- ``GET /tpu``                the Overview, its aggregates from the fleet
+  rollup on the app's device (``analytics.stats.fleet_stats``);
+- ``GET /tpu/nodes``, ``/tpu/pods``, ``/tpu/deviceplugins``,
+  ``/tpu/topology``           the other snapshot pages (the node table
+  paged by ``?page=``/``?q=`` or windowed by ``?limit=``/``?cursor=``,
+  the pod table windowed; the topology heatmap from a peek of the
+  metrics cache, never a fetch);
 - ``GET /tpu/metrics``        the metrics page with its utilization
   forecast, fit on the app's device and served by the fused CUDA kernel
   ``forecast_mlp_forward`` on a card (its plain version on the CPU);
-- ``GET /refresh?back=<url>`` invalidate the metrics and forecast caches,
-  then redirect to a registered route;
+- ``GET /refresh?back=<url>`` re-run the snapshot's imperative track,
+  invalidate the metrics and forecast caches (and with
+  ``recalibrate=1`` the rollup calibration and the device columns), then
+  redirect to a registered route;
 - ``GET /healthz``            liveness and the runtime counters, as JSON;
 - ``GET /metricsz``           Prometheus text self-exposition;
 - ``GET /debug/traces``       recent request traces, as JSON.
 
-Every other path is a 404. The metrics fetch and the forecast sit behind
+Every other path is a 404. Every page reads a cluster snapshot from the
+app's ``AcceleratorDataContext``, synced inline at most once per
+``min_sync_interval_s`` and shared otherwise (the JAX host's inline
+branch, `app.py:755-773`). The metrics fetch and the forecast sit behind
 two stale-while-revalidate refreshers: the first request for a fleet
 fits cold, and after the TTL a stale page is served at once while one
 background refit warm-starts from the process-wide carry
 (``runtime.device_cache.warm_carries``).
 
-The cluster snapshot context, the gateway, push, replication, workers,
-SLOs, fragments, the history store, the incident timeline and every page
-other than metrics are not part of this host; ``/healthz`` leaves out
-the keys of the JAX host's that describe them.
+Background sync, the gateway, push, replication, workers, SLOs, the
+fragment cache, the history store, the incident timeline and the pages
+not listed above are not part of this host; ``/healthz`` leaves out the
+keys of the JAX host's that describe them.
 """
 
 from __future__ import annotations
@@ -37,13 +49,15 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
+from ..analytics import stats as rollup_stats
+from ..context.accelerator_context import AcceleratorDataContext, ClusterSnapshot
 from ..device import DeviceLike, resolve_device
 from ..metrics.client import TpuMetricsSnapshot, fetch_tpu_metrics
 from ..models.fused_forward import LAUNCHES, kernel_build_info
 from ..models.service import ForecastView, compute_forecast_incremental
 from ..obs.metrics import TEXT_CONTENT_TYPE
 from ..obs.metrics import registry as metrics_registry
-from ..obs.trace import span, trace_request, trace_ring
+from ..obs.trace import annotate, span, trace_request, trace_ring
 from ..registration import Registry, register_plugin
 from ..runtime.device_cache import warm_carries
 from ..runtime.refresh import Refresher
@@ -76,11 +90,12 @@ class DashboardApp:
     """The dashboard host's request handling, without sockets
     (:meth:`handle`), plus :meth:`serve` to put it on one.
 
-    ``device`` is where the forecast fits and runs: CUDA unless the
-    caller asks for ``"cpu"``; without CUDA the constructor raises.
-    ``clock`` (wall time) is only for displayed timestamps and the
-    Prometheus range-query bounds; ``monotonic`` drives every TTL and
-    age, so tests advance a list cell instead of sleeping."""
+    ``device`` is where the forecast fits and runs and where the fleet
+    rollup runs: CUDA unless the caller asks for ``"cpu"``; without CUDA
+    the constructor raises. ``clock`` (wall time) is only for displayed
+    timestamps (page ages, the snapshot's fetch time) and the Prometheus
+    range-query bounds; ``monotonic`` drives every TTL, age and the sync
+    interval, so tests advance a list cell instead of sleeping."""
 
     #: Forecasts are fresh this long: the history grid gains a point per
     #: step, and the fit must not run on every page view.
@@ -92,6 +107,10 @@ class DashboardApp:
     #: Instant metrics fetches are cached briefly too.
     METRICS_TTL_S = 5.0
     METRICS_GRACE_S = 60.0
+    #: How stale a cached metrics snapshot may be and still tint the
+    #: topology heatmap: a minute-old tint beats none, and the page must
+    #: never pay the Prometheus chain for it.
+    METRICS_PEEK_MAX_AGE_S = 60.0
 
     def __init__(
         self,
@@ -99,6 +118,7 @@ class DashboardApp:
         *,
         device: DeviceLike = None,
         registry: Registry | None = None,
+        min_sync_interval_s: float = 5.0,
         clock: Callable[[], float] = time.time,
         monotonic: Callable[[], float] = time.monotonic,
     ) -> None:
@@ -106,6 +126,20 @@ class DashboardApp:
         self._transport = transport
         self._registry = registry if registry is not None else register_plugin()
         self._clock = clock
+        self._mono = monotonic
+        #: The cluster snapshot every page reads; it owns the snapshot's
+        #: device-resident fleet columns (``self._ctx.fleet_cache``).
+        self._ctx = AcceleratorDataContext(transport, device=self._device, clock=clock)
+        self._min_sync = min_sync_interval_s
+        # -inf, not 0.0: the monotonic clock's epoch is arbitrary, and 0.0
+        # could suppress the first sync for up to min_sync seconds.
+        self._last_sync = float("-inf")
+        #: Serializes syncs, refreshes and the check-then-act on
+        #: _last_sync; renders of a built snapshot stay lock-free.
+        self._sync_lock = threading.Lock()
+        #: The last snapshot a page read, for /healthz (which never
+        #: syncs and never takes the sync lock).
+        self._last_snapshot: ClusterSnapshot | None = None
         self._metrics_refresher = Refresher(
             "metrics", ttl_s=self.METRICS_TTL_S, grace_s=self.METRICS_GRACE_S,
             monotonic=monotonic,
@@ -152,6 +186,27 @@ class DashboardApp:
         return self._registry.routes[0].path
 
     # ------------------------------------------------------------------
+    # The cluster snapshot
+    # ------------------------------------------------------------------
+
+    def _synced_snapshot(self) -> ClusterSnapshot:
+        """The snapshot for a page: one inline sync under the sync lock
+        when ``min_sync_interval_s`` has passed on the monotonic clock
+        since the last, else the current snapshot (coalesced)."""
+        with span("sync.snapshot"), self._sync_lock:
+            now = self._mono()
+            if now - self._last_sync >= self._min_sync:
+                self._ctx.sync()
+                self._last_sync = now
+                annotate(source="inline-sync")
+            else:
+                annotate(source="coalesced")
+            snap = self._ctx.snapshot()
+            self._last_snapshot = snap
+            annotate(nodes=len(snap.all_nodes or []))
+            return snap
+
+    # ------------------------------------------------------------------
     # Metrics and forecast, behind the refreshers
     # ------------------------------------------------------------------
 
@@ -195,6 +250,15 @@ class DashboardApp:
             self._metrics_key(metrics),
             lambda: self._compute_forecast(metrics),
             epoch=self._cache_epoch,
+        )
+
+    def _peek_metrics(self) -> TpuMetricsSnapshot | None:
+        """The cached metrics snapshot if younger than
+        ``METRICS_PEEK_MAX_AGE_S``, else None — never fetches. For the
+        topology heatmap, a progressive enhancement that reuses what a
+        recent metrics view already paid for."""
+        return self._metrics_refresher.peek(
+            "metrics", epoch=self._cache_epoch, max_age_s=self.METRICS_PEEK_MAX_AGE_S
         )
 
     def _metrics_and_forecast(self) -> tuple[TpuMetricsSnapshot | None, ForecastView | None]:
@@ -280,9 +344,18 @@ class DashboardApp:
         route_path = parsed.path.rstrip("/") or "/tpu"
 
         if route_path == "/healthz":
-            return 200, "application/json", json.dumps(
-                {"ok": True, "runtime": self._runtime_health()}
-            )
+            # Never syncs and never waits on the sync lock: it reads the
+            # last snapshot a page read.
+            snap = self._last_snapshot
+            health: dict[str, Any] = {"ok": True, "loading": snap is None or snap.loading}
+            if snap is not None:
+                health.update(
+                    errors=snap.errors,
+                    fetched_at=snap.fetched_at,
+                    nodes=len(snap.all_nodes or []),
+                )
+            health.update(analytics=self._analytics_health(), runtime=self._runtime_health())
+            return 200, "application/json", json.dumps(health)
         if route_path == "/metricsz":
             return 200, TEXT_CONTENT_TYPE, metrics_registry.render()
         if route_path == "/debug/traces":
@@ -290,11 +363,21 @@ class DashboardApp:
                 {"capacity": trace_ring.capacity, "traces": trace_ring.snapshot()}
             )
         if route_path == "/refresh":
-            # The user asks for fresh data: bump the epoch, so every
-            # cached metrics and forecast entry is stale from now on.
+            # Re-run the imperative track inline, as the reference's
+            # refreshKey effect does, then bump the epoch: every cached
+            # metrics and forecast entry is stale from now on, and the
+            # redirect never waits behind a fit.
+            with self._sync_lock:
+                self._ctx.refresh()
             with self._lock:
                 self._cache_epoch += 1
-            back = parse_qs(parsed.query).get("back", [self._home])[0]
+            query = parse_qs(parsed.query)
+            if query.get("recalibrate", ["0"])[0] in ("1", "true"):
+                # Explicit opt-in only: the bare /refresh is every page's
+                # header link, and a re-probe per click would re-pay it.
+                rollup_stats.calibration.reset()
+                self._ctx.fleet_cache.invalidate()
+            back = query.get("back", [self._home])[0]
             # Only registered route paths may be redirect targets: no open
             # redirects ('//evil', absolute URLs), no header injection.
             if self._registry.route_for(back) is None:
@@ -304,10 +387,40 @@ class DashboardApp:
         route = self._registry.route_for(route_path)
         if route is None:
             return 404, "text/html", self._page_html("Not Found", "<p>No such page.</p>")
-        with span("page.data", kind=route.kind):
-            metrics, forecast = self._metrics_and_forecast()
+        snap = self._synced_snapshot()
+        now = self._clock()
+        params = parse_qs(parsed.query)
+        paging: dict[str, Any] = {}
+        if route.paged:
+            try:
+                paging["page"] = int(params.get("page", ["1"])[0])
+            except ValueError:
+                paging["page"] = 1
+            # Rendered escaped like any cluster string; capped so a
+            # hostile URL cannot make the name filter arbitrarily costly.
+            paging["query"] = params.get("q", [""])[0][:253]
+        if route.windowed:
+            # Forwarded only when present, so their absence keeps the
+            # legacy rendering byte-identical.
+            if "limit" in params:
+                try:
+                    paging["limit"] = int(params["limit"][0])
+                except ValueError:
+                    pass
+            if "cursor" in params:
+                paging["cursor"] = params["cursor"][0][:512]
+        if route.kind == "metrics":
+            with span("page.data", kind=route.kind):
+                metrics, forecast = self._metrics_and_forecast()
         with span("page.component", kind=route.kind):
-            el = route.component(metrics, forecast)
+            if route.kind == "metrics":
+                el = route.component(metrics, forecast)
+            elif route.kind == "topology":
+                # Cache PEEK only: the heatmap must never pay the
+                # Prometheus chain.
+                el = route.component(snap, metrics=self._peek_metrics())
+            else:
+                el = route.component(snap, now=now, **paging)
         with span("render.html"):
             body = self._page_html(route.name, render_html(el), route_path)
         return 200, "text/html", body
@@ -326,11 +439,35 @@ class DashboardApp:
             f"<main>{body}</main></body></html>"
         )
 
+    def _analytics_health(self) -> dict[str, Any]:
+        """The rollup calibration for /healthz: the measured timings,
+        whether they are stale, and the backend the policy picks for the
+        last snapshot's TPU nodes on this app's device."""
+        cal = rollup_stats.calibration
+        now = time.monotonic()
+        snap = self._last_snapshot
+        tpu_nodes = len(snap.provider("tpu").nodes) if snap is not None else 0
+        return {
+            "calibrated": cal.device_ms is not None,
+            "stale": cal.expired(now),
+            "age_s": round(now - cal.calibrated_at, 1) if cal.calibrated_at is not None else None,
+            "backend": cal.backend,
+            "device_ms": round(cal.device_ms, 4) if cal.device_ms is not None else None,
+            "python_ms_per_node": (
+                round(cal.python_ms_per_node, 6) if cal.python_ms_per_node is not None else None
+            ),
+            "floor_nodes": rollup_stats.DEVICE_ROLLUP_MIN_NODES,
+            "tpu_nodes": tpu_nodes,
+            "chosen_backend": rollup_stats.chosen_backend(tpu_nodes, self._device),
+        }
+
     def _runtime_health(self) -> dict[str, Any]:
         """The /healthz runtime block: device-to-host copies paid, the
-        warm carries, both refreshers, and the device with its kernel."""
+        device-resident fleet columns, the warm carries, both
+        refreshers, and the device with its kernel."""
         return {
             "transfer": transfer_stats.snapshot(),
+            "fleet_cache": self._ctx.fleet_cache.snapshot(),
             "warm_carries": {
                 **self._warm_forecast_states.counters(),
                 "entries": len(self._warm_forecast_states),
@@ -371,13 +508,15 @@ class DashboardApp:
 
     def close(self, timeout_s: float = 30.0) -> None:
         """Wait for every refit in flight and join its thread, drop the
-        process's warm carries and wait for the card's queued work, so
-        nothing this app started is still running. Raises TimeoutError
-        if a refit outlives ``timeout_s``."""
+        process's warm carries and the snapshot's device columns, and
+        wait for the card's queued work, so nothing this app started is
+        still running. Raises TimeoutError if a refit outlives
+        ``timeout_s``."""
         for r in (self._metrics_refresher, self._forecast_refresher):
             if not r.drain(timeout_s):
                 raise TimeoutError(f"the {r.name} refresher's refits outlived {timeout_s} s")
         self._warm_forecast_states.invalidate()
+        self._ctx.fleet_cache.invalidate()
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
 
@@ -405,8 +544,8 @@ class DashboardServer:
 
     def close(self, timeout_s: float = 30.0) -> None:
         """Stop accepting, close the socket, join the request threads,
-        then close the app: its refits drained, the warm carries
-        dropped and no CUDA work left in flight."""
+        then close the app: its refits drained, the warm carries and
+        device columns dropped and no CUDA work left in flight."""
         self._httpd.shutdown()
         self._thread.join()
         # ThreadingHTTPServer blocks on close: server_close joins every

@@ -1,10 +1,14 @@
-"""UI kit — element tree, the components the metrics page uses, and
-fragment boundaries. Pages build trees; renderers are separate."""
+"""UI kit — element tree, the components the pages use, and fragment
+boundaries. Pages build trees; renderers are separate."""
 
 from .components import (
     BAR_CRIT_PCT,
     BAR_WARN_PCT,
+    EmptyContent,
+    ErrorBox,
+    Loader,
     NameValueTable,
+    PercentageBar,
     SectionBox,
     SimpleTable,
     StatusLabel,
@@ -17,8 +21,12 @@ __all__ = [
     "BAR_CRIT_PCT",
     "BAR_WARN_PCT",
     "Element",
+    "EmptyContent",
+    "ErrorBox",
     "FragmentBoundary",
+    "Loader",
     "NameValueTable",
+    "PercentageBar",
     "SectionBox",
     "SimpleTable",
     "StatusLabel",

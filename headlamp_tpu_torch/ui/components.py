@@ -1,8 +1,8 @@
 """Common components — the slice of the JAX package's kit
-(``headlamp_tpu/ui/components.py``) that the metrics page renders.
+(``headlamp_tpu/ui/components.py``) that the port's pages render.
 
 Semantics mirror the Headlamp kit the reference composes (SectionBox,
-SimpleTable, NameValueTable, StatusLabel). Each returns an
+SimpleTable, NameValueTable, StatusLabel, Loader, PercentageBar). Each returns an
 :class:`Element`; ``class_`` names (``hl-*``) are the stable hooks tests
 and the stylesheet key off.
 """
@@ -34,9 +34,14 @@ def SimpleTable(
     data: Iterable[Any],
     *,
     empty_message: str = "No data",
+    row_key: Callable[[Any], str] | None = None,
+    row_salt: Callable[[Any], Any] | None = None,
 ) -> Element:
     """Column-spec table (label + getter or key per column), with the
-    empty state built in."""
+    empty state built in. With ``row_key``/``row_salt`` each ``<tr>``
+    becomes a :class:`~headlamp_tpu_torch.ui.fragment.FragmentBoundary`
+    keyed and salted as the JAX package keys it; the rendered bytes are
+    the same either way."""
     rows = list(data)
     if not rows:
         return h("p", {"class_": "hl-empty"}, empty_message)
@@ -50,11 +55,21 @@ def SimpleTable(
             return row.get(key, "")
         return ""
 
+    def tr(row: Any) -> Any:
+        return h("tr", None, [h("td", None, cell(c, row)) for c in columns])
+
+    if row_key is not None and row_salt is not None:
+        from .fragment import fragment
+
+        body = [fragment(row_key(row), row_salt(row), lambda row=row: tr(row)) for row in rows]
+    else:
+        body = [tr(row) for row in rows]
+
     return h(
         "table",
         {"class_": "hl-table"},
         h("tr", None, [h("th", None, c["label"]) for c in columns]),
-        [h("tr", None, [h("td", None, cell(c, row)) for c in columns]) for row in rows],
+        body,
     )
 
 
@@ -96,3 +111,50 @@ def UtilizationBar(used: float, capacity: float, *, unit: str = "") -> Element:
         h("div", {"class_": "hl-utilbar-fill", "style": f"width:{pct:.1f}%"}),
         h("span", {"class_": "hl-utilbar-label"}, label),
     )
+
+
+def PercentageBar(parts: Sequence[tuple[str, float]]) -> Element:
+    """Stacked distribution bar: [(label, value)]. Renders each part with
+    a width percentage of the parts' sum and a legend (the GPU-type
+    distribution bar, `OverviewPage.tsx:275-312`)."""
+    values = [(str(label), max(0.0, float(v))) for label, v in parts]
+    denom = sum(v for _, v in values) or 1.0
+    return h(
+        "div",
+        {"class_": "hl-pctbar"},
+        h(
+            "div",
+            {"class_": "hl-pctbar-track"},
+            [
+                h(
+                    "div",
+                    {
+                        "class_": "hl-pctbar-part",
+                        "style": f"width:{v / denom * 100:.1f}%",
+                        "title": f"{label}: {v:g}",
+                    },
+                )
+                for label, v in values
+                if v > 0
+            ],
+        ),
+        h(
+            "div",
+            {"class_": "hl-pctbar-legend"},
+            [h("span", None, f"{label}: {v:g}") for label, v in values],
+        ),
+    )
+
+
+def Loader(title: str = "Loading…") -> Element:
+    return h("div", {"class_": "hl-loader", "role": "progressbar"}, title)
+
+
+def EmptyContent(*children: Any) -> Element:
+    return h("div", {"class_": "hl-empty-content"}, *children)
+
+
+def ErrorBox(message: str) -> Element:
+    """The aggregated-error banner every page shows when
+    ``snapshot.error`` is set (`OverviewPage.tsx:162-168`)."""
+    return h("div", {"class_": "hl-error", "role": "alert"}, "Error: ", message)

@@ -1,8 +1,9 @@
 """The port's CUDA kernel on the card: its wrapper against its plain
 version at widths and batches the CPU tests cannot reach, its operand
-checks, its replay inside a CUDA graph, and the fit on the card against
-the same fit on the CPU. The kernel has no CPU mode, so every test here
-needs a CUDA device and skips without one. On the card:
+checks, its replay inside a CUDA graph, the fit on the card against the
+same fit on the CPU, and the fleet rollup on the card against its Python
+oracle. The kernel has no CPU mode, so every test here needs a CUDA
+device and skips without one. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -225,3 +226,46 @@ def test_dashboard_host_round_trip_on_card(cuda):
         assert ff.LAUNCHES.n == before + 2 and view().inference_path == "cuda-warm"
     finally:
         server.close()
+
+
+def _tpu_view(n_nodes, version=None):
+    from headlamp_tpu_torch.domain.accelerator import classify_fleet
+    from headlamp_tpu_torch.fleet import fleet_large
+
+    fleet = fleet_large(n_nodes)
+    view = classify_fleet(fleet["nodes"], fleet["pods"])["tpu"]
+    view.version = version
+    return view
+
+
+@pytest.mark.parametrize("n_nodes", [1024, 4096])
+def test_fleet_rollup_on_card_matches_the_oracle(cuda, n_nodes):
+    from headlamp_tpu_torch.analytics import stats
+
+    view = _tpu_view(n_nodes)
+    got = stats.fleet_stats(view, device=cuda, backend="cuda")
+    assert got == stats.python_fleet_stats(view)
+
+
+def test_fleet_rollup_reads_columns_uploaded_by_another_thread(cuda):
+    # One thread uploads the columns on its own stream; another rolls
+    # them up on its own: the entry is published only once complete.
+    import threading
+
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.runtime.device_cache import DeviceFleetCache
+
+    view = _tpu_view(4096, version=1)
+    cache = DeviceFleetCache(cuda)
+
+    def upload():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            assert cache.warm(view)
+
+    t = threading.Thread(target=upload)
+    t.start()
+    t.join()
+    with torch.cuda.stream(torch.cuda.Stream(cuda)):
+        got = stats.fleet_stats(view, device=cuda, fleet_cache=cache, backend="cuda")
+    assert cache.counters() == {"hits": 1, "misses": 0, "uploads": 1}
+    assert got == stats.python_fleet_stats(view)

@@ -209,9 +209,12 @@ def test_metrics_request_trace_and_healthz_runtime():
     status, _, body = app.handle("/healthz")
     health = json.loads(body)
     assert trace_ring.snapshot()[0] == trace  # probes stay out of the ring
-    assert set(health) == {"ok", "runtime"} and health["ok"] is True
+    assert set(health) == {
+        "ok", "loading", "errors", "fetched_at", "nodes", "analytics", "runtime",
+    } and health["ok"] is True
+    assert health["nodes"] == 2 and health["analytics"]["chosen_backend"] == "python"
     runtime = health["runtime"]
-    assert set(runtime) == {"transfer", "warm_carries", "refresh", "device"}
+    assert set(runtime) == {"transfer", "fleet_cache", "warm_carries", "refresh", "device"}
     assert runtime["device"] == {
         "torch_device": "cpu", "kernel": "forecast_mlp_forward", "kernel_path": "torch",
         "launches": ff.LAUNCHES.n, "build": None,
@@ -248,7 +251,7 @@ def test_socket_round_trip_leaves_no_thread_running():
         assert _get(server.url + "/metricsz")[:2] == (200, "text/plain")
         assert _get(server.url + "/nope")[0] == 404
         with urllib.request.urlopen(server.url + "/refresh?back=//evil", timeout=60) as resp:
-            assert resp.url == server.url + "/tpu/metrics" and resp.status == 200
+            assert resp.url == server.url + "/tpu" and resp.status == 200
     finally:
         server.close()
     # Server, request and refit threads (other tests' threads aside).

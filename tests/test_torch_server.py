@@ -8,7 +8,8 @@ package's PRNGKey(0) init, so the two fit the same model. The page's
 ``perf_counter``); the forecasts, cold and after a warm background
 refit, agree to 1e-2 as in ``tests/test_torch_service.py``. A fit that
 raises is a 500 naming it on the request path and a counted, named
-refit error on the background path; an unported route is a 404.
+refit error on the background path; an unported route is a 404, and
+``/refresh`` returns home to the Overview.
 """
 
 import json
@@ -202,7 +203,7 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     assert len(warm_carries) == 1
 
 
-@pytest.mark.parametrize("path", ["/", "/tpu", "/tpu/nodes", "/sloz"])
+@pytest.mark.parametrize("path", ["/tpu/fleet", "/tpu/trends", "/intel", "/sloz"])
 def test_unported_routes_are_404(path):
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     status, ctype, body = app.handle(path)
@@ -213,8 +214,8 @@ def test_unported_routes_are_404(path):
 def test_refresh_bumps_the_epoch_and_redirects_only_to_routes():
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     assert app.handle("/refresh?back=/tpu/metrics") == (302, "/tpu/metrics", "")
-    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/tpu"):
-        assert app.handle(f"/refresh?back={back}") == (302, "/tpu/metrics", "")
+    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/tpu/fleet"):
+        assert app.handle(f"/refresh?back={back}") == (302, "/tpu", "")
     assert app._cache_epoch == 5
 
 
