@@ -16,20 +16,28 @@ cluster dashboard: the fleet rollup on the card against its Python
 oracle at 256 to 16384 nodes (timed, with its upload and its kernels
 counted), and the host serving the five snapshot pages over a socket at
 ``--demo large``, each request's device-to-host copies held to what the
-code implies. It exits non-zero at the first failure, and without CUDA
-or without the package beside it. The last line is one JSON object:
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+code implies. Then the fleet drill-down: the viewport tree's region
+rollup on the card against its Python oracle at ``fleet_viewport`` 1024
+to 16384 nodes and past 64 clusters (timed, its kernels counted), the
+host serving ``/tpu/fleet`` at every depth over a socket at each size
+(one copy on the first paint of a snapshot, none after), and the native
+node, pod and nodes-table views. It exits non-zero at the first failure,
+and without CUDA or without the package beside it. The last line is one
+JSON object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -100,6 +108,19 @@ FOUR_PAGES = ("/tpu", "/tpu/nodes", "/tpu/topology", "/tpu/pods")
 #: The cluster dashboard path's kernel launches: its one metrics GET
 #: (a fit), which feeds the topology heatmap's peek.
 CLUSTER_LAUNCHES = 1
+#: Drill-down fleets the region rollup is held to its oracle and timed
+#: at, (nodes, clusters) of ``fleet_viewport``: bench_viewport's three
+#: sizes, and one with more clusters than the rollup's 64 segments.
+VIEWPORT_FLEETS = ((1024, 8), (4096, 8), (16384, 8), (4096, 70))
+#: Fleet sizes the host serves the drill-down at, and paints per p50.
+VIEWPORT_PAINT_NODES = (1024, 4096, 16384)
+VIEWPORT_TIMED = 9
+#: bench_viewport's acceptance envelope: a 16k paint within 3x the 1k
+#: paint. Printed beside the ratio, not checked: host times move by tens
+#: of percent between runs.
+VIEWPORT_ENVELOPE = 3.0
+#: The drill-down and native views run no forecast.
+VIEWPORT_LAUNCHES = 0
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -123,6 +144,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def http_get_no_redirect(url: str) -> tuple[int, str | None]:
+    """(status, Location) of one GET that does not follow a redirect."""
+    parsed = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(parsed.hostname, parsed.port, timeout=120)
+    try:
+        conn.request("GET", parsed.path + (f"?{parsed.query}" if parsed.query else ""))
+        resp = conn.getresponse()
+        resp.read()
+        return resp.status, resp.getheader("Location")
+    finally:
+        conn.close()
+
+
 def http_get(url: str) -> tuple[int, str]:
     """(status, body) of one GET over the socket."""
     try:
@@ -130,6 +164,17 @@ def http_get(url: str) -> tuple[int, str]:
             return resp.status, resp.read().decode()
     except urllib.error.HTTPError as exc:
         return exc.code, exc.read().decode()
+
+
+def span_totals(trace: dict[str, Any]) -> dict[str, float]:
+    """Milliseconds by span name over a recorded trace's span tree."""
+    totals: dict[str, float] = {}
+    stack = list(trace["spans"])
+    while stack:
+        node = stack.pop(0)
+        totals[node["name"]] = totals.get(node["name"], 0.0) + node["duration_ms"]
+        stack.extend(node["children"])
+    return totals
 
 
 def profile_device(torch: Any, fn: Callable[[], Any]) -> tuple[float, int, list]:
@@ -452,9 +497,6 @@ def fleet_rollup_phase(torch: Any, smi: str) -> list[dict[str, Any]]:
     print(f"rollup: the cuda rollup beats the Python pass at {wins} nodes of {list(ROLLUP_NODES)}; "
           f"measured at {ROLLUP_NODES[1]} nodes the two tie near {tie:.0f} TPU nodes "
           f"(floor {stats.DEVICE_ROLLUP_MIN_NODES}); on {smi}")
-    print(json.dumps({"device_programs": [{"name": "fleet_rollup", "route": "torch ops",
-                                           "replaces": "headlamp_tpu/analytics/fleet_jax.py:98",
-                                           "by_nodes": rows}]}))
     return rows
 
 
@@ -577,19 +619,214 @@ def cluster_dashboard_phase(torch: Any, clock: Callable[[], float], smi: str) ->
     finally:
         server.close()
     last_tpu = next(t for t in trace_ring.snapshot() if t["path"] == "/tpu")
-    spans: dict[str, float] = {}
-    stack = list(last_tpu["spans"])
-    while stack:
-        node = stack.pop(0)
-        spans[node["name"]] = spans.get(node["name"], 0.0) + node["duration_ms"]
-        stack.extend(node["children"])
-    print(f"cluster: the last timed /tpu: handle() {last_tpu['duration_ms']} ms, spans {spans}")
+    print(f"cluster: the last timed /tpu: handle() {last_tpu['duration_ms']} ms, "
+          f"spans {span_totals(last_tpu)}")
     p50 = {p: round(statistics.median(v), 1) for p, v in page_ms.items()}
     print(f"cluster: page paint p50 of {SERVE_TIMED} over the socket, demo large, sync on "
           f"every request: {p50}; all {json.dumps(page_ms)}; on {smi}")
     print(f"cluster: four-page paint p50 {statistics.median(four_ms):.1f} ms "
           f"({', '.join(FOUR_PAGES)}; {', '.join(f'{v:.1f}' for v in four_ms)})")
     return launches
+
+
+def region_rollup_phase(torch: Any, smi: str) -> list[dict[str, Any]]:
+    """Step 12a: the viewport tree on the card against ``_host_sums``,
+    exactly, at each of VIEWPORT_FLEETS, its first build in one copy;
+    then the region rollup's p50 on cached columns (the id upload,
+    dispatch and the one copy), the sums with their Python id pass, its
+    device time, the host pass, its device events per call and its
+    bound."""
+    from headlamp_tpu_torch.analytics.fleet_torch import (
+        REGION_CLUSTER_SEGMENTS,
+        REGION_NODE_COLUMNS,
+        REGION_POD_COLUMNS,
+        pack_region_rollup,
+        region_rollup,
+        region_rollup_arrays,
+        unpack_region_rollup,
+    )
+    from headlamp_tpu_torch.context import AcceleratorDataContext
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.runtime import transfer
+    from headlamp_tpu_torch.viewport import tree as vt
+
+    dev = torch.device("cuda")
+    rows = []
+    for n, n_clusters in VIEWPORT_FLEETS:
+        transport = fleet_transport(fleet_viewport(n, clusters=n_clusters))
+        state = AcceleratorDataContext(transport, device=dev).sync().provider("tpu")
+        before = transfer.transfer_stats.blocking_gets
+        t0 = time.perf_counter()
+        tree = vt.viewport_tree(state)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        copies = transfer.transfer_stats.blocking_gets - before
+        check(tree.source == "device" and copies == 1,
+              f"the tree at {n} nodes: source {tree.source}, {copies} copies")
+        region_of, _, _, cluster_id, slice_id = vt._assignments(state.nodes)
+        args = (cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS)
+        want_clusters, want_slices = vt._host_sums(state, *args)
+        got_slices = [None] * len(slice_id)
+        for cluster in tree.clusters:
+            for slc in cluster.children:
+                got_slices[slice_id[(cluster.key, slc.key)]] = slc.stats
+        check([c.stats for c in tree.clusters] == want_clusters and got_slices == want_slices,
+              f"the card's region rollup differs from _host_sums at {n} nodes, "
+              f"{n_clusters} clusters")
+        check(vt._device_sums(state, *args) == (want_clusters, want_slices),
+              f"_device_sums differs from _host_sums at {n} nodes")
+
+        fleet = state.fleet_cache.fleet_for(state.view)
+        ids = vt._region_ids(fleet, cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS)
+
+        def one_rollup() -> Any:
+            out = region_rollup_arrays(fleet, *ids, dev)
+            return unpack_region_rollup(transfer.fetch(pack_region_rollup(out)))
+
+        rollup_ms = p50_ms(one_rollup, ROLLUP_TIMED)
+        sums_ms = p50_ms(lambda: vt._device_sums(state, *args), PYTHON_TIMED)
+        host_ms = p50_ms(lambda: vt._host_sums(state, *args), PYTHON_TIMED)
+        tensors = (
+            [getattr(fleet, name) for name in REGION_NODE_COLUMNS]
+            + [torch.as_tensor(a, device=dev) for a in ids]
+            + [getattr(fleet, name) for name in REGION_POD_COLUMNS]
+        )
+        device_ms, _ = time_device_ms(lambda: region_rollup(*tensors))
+        events = device_event_names(torch, one_rollup)
+        kernels = [e for e in events if not e.startswith(("Memcpy", "Memset"))]
+        names: dict[str, int] = {}
+        for name in kernels:
+            short = name.split("<")[0].split("(")[0].removeprefix("void ")
+            names[short] = names.get(short, 0) + 1
+        n_pad, p_pad = fleet.n_nodes_padded, fleet.n_pods_padded
+        nbytes = 4 * (6 * n_pad + 4 * p_pad) + 8 * 6 * (REGION_CLUSTER_SEGMENTS + n_pad)
+        row = dict(
+            nodes=n, clusters=len(cluster_id), slices=len(slice_id), pods=len(state.pods),
+            n_pad=n_pad, p_pad=p_pad, tree_build_ms=build_ms, rollup_ms=rollup_ms,
+            sums_ms=sums_ms, device_ms=device_ms, host_ms=host_ms,
+            kernels=len(kernels), device_events=len(events),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        )
+        rows.append(row)
+        print(f"region: {n} nodes, {row['clusters']} clusters, {row['slices']} slices, "
+              f"{row['pods']} pods (pad {n_pad}/{p_pad}): equal to _host_sums, first build "
+              f"{build_ms:.2f} ms in 1 copy; p50 rollup_ms={rollup_ms:.4f} (id upload + "
+              f"dispatch + one copy), sums_ms={sums_ms:.4f} (with the id pass), "
+              f"device_ms={device_ms:.6f}, host_ms={host_ms:.4f} (_host_sums), "
+              f"bound_ms={row['bound_ms']:.6f} (bytes); {len(kernels)} kernels and "
+              f"{len(events)} device events per rollup, by name {names}; on {smi}")
+    return rows
+
+
+def viewport_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> int:
+    """Step 12b: the host on the card over the socket, built as
+    bench_viewport builds it (``fleet_viewport(n)``, one sync per hour):
+    ``/tpu/fleet`` at the root, a cluster, a slice, the slice's next
+    window and an unknown region, the copies of each request, and the
+    paint p50s of ``/tpu/fleet`` and ``/tpu/nodes?limit=64``; then the
+    native views at ``--demo large``. Returns the forecast kernel's
+    launches on these paths."""
+    from headlamp_tpu_torch.fleet import fleet_large, fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    LAUNCHES.reset()
+    paint: dict[str, dict[int, float]] = {"/tpu/fleet": {}, "/tpu/nodes?limit=64": {}}
+    for n in VIEWPORT_PAINT_NODES:
+        app = DashboardApp(fleet_transport(fleet_viewport(n)), device="cuda", clock=clock,
+                           min_sync_interval_s=3600.0)
+        server = app.serve("127.0.0.1", 0)
+        try:
+            t0 = time.perf_counter()
+            status, body = http_get(server.url + "/tpu/fleet")
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            check(status == 200 and "<dt>Rollup source</dt><dd>device</dd>" in body
+                  and app.last_request_device_gets == 1,
+                  f"first GET /tpu/fleet at {n} nodes: {status}, "
+                  f"copies {app.last_request_device_gets}")
+            trace = json.loads(http_get(server.url + "/debug/traces")[1])["traces"][0]
+            slice_path = "/tpu/fleet?region=cluster/0/slice/c0-slice-0&limit=10"
+            status, body = http_get(server.url + slice_path)
+            cursor = re_cursor(body)
+            drill = {
+                "/tpu/fleet?region=cluster/0": "Cluster 0",
+                slice_path: "rows 1–10 of 32 nodes",
+                f"{slice_path}&cursor={cursor}": "rows 11–20 of 32 nodes",
+                "/tpu/fleet?region=cluster/0/slice/nope": "No such region",
+                "/tpu/fleet": "Rollup source",
+            }
+            for path, text in drill.items():
+                status, body = http_get(server.url + path)
+                check(status == 200 and text in body and app.last_request_device_gets == 0,
+                      f"GET {path} at {n} nodes: {status}, {text!r} "
+                      f"{'found' if text in body else 'missing'}, copies "
+                      f"{app.last_request_device_gets}")
+            for path in paint:
+                http_get(server.url + path)  # warm: the per-generation sort
+                samples = []
+                for _ in range(VIEWPORT_TIMED):
+                    t0 = time.perf_counter()
+                    status, _ = http_get(server.url + path)
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                    check(status == 200, f"GET {path} at {n} nodes answered {status}")
+                paint[path][n] = statistics.median(samples)
+            uploads = app._ctx.fleet_cache.counters()["uploads"]
+            check(uploads == 1, f"{uploads} uploads at {n} nodes")
+        finally:
+            server.close()
+        print(f"viewport: {n} nodes: first GET /tpu/fleet {cold_ms:.1f} ms with 1 copy, "
+              f"handle() {trace['duration_ms']} ms, spans {span_totals(trace)}; cluster, "
+              f"slice, next window, unknown region and root again 200 with 0 copies; "
+              f"1 upload")
+    lo, hi = VIEWPORT_PAINT_NODES[0], VIEWPORT_PAINT_NODES[-1]
+    for path, by_n in paint.items():
+        ratio = by_n[hi] / by_n[lo]
+        print(f"viewport: {path} paint p50 of {VIEWPORT_TIMED} over the socket: "
+              + ", ".join(f"{n} nodes {ms:.2f} ms" for n, ms in by_n.items())
+              + f"; {hi}/{lo} ratio {ratio:.2f} (bench_viewport envelope "
+              f"{VIEWPORT_ENVELOPE:g}x: {'within' if ratio <= VIEWPORT_ENVELOPE else 'OUTSIDE'})"
+              f"; on {smi}")
+
+    fleet = fleet_large(1024)
+    tpu_node = next(n["metadata"]["name"] for n in fleet["nodes"]
+                    if "cloud.google.com/gke-tpu-accelerator" in n["metadata"]["labels"])
+    tpu_pod = next(p for p in fleet["pods"]
+                   if p["spec"]["nodeName"] and "google.com/tpu" in str(p["spec"]["containers"]))
+    pod_path = f"/pod/{tpu_pod['metadata']['namespace']}/{tpu_pod['metadata']['name']}"
+    server = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock).serve(
+        "127.0.0.1", 0)
+    tpu_section = '<h2 class="hl-section-title">TPU</h2>'
+    try:
+        for path, want, text in (
+            ("/nodes", 200, "<th>TPU Type</th>"),
+            ("/nodes?page=2", 200, "page 2 of 2"),
+            (f"/node/{tpu_node}", 200, tpu_section),
+            ("/node/no-such-node", 404, "Node not found"),
+            (pod_path, 200, tpu_section),
+        ):
+            status, body = http_get(server.url + path)
+            check(status == want and text in body, f"GET {path}: {status}, want {want} "
+                  f"with {text!r}")
+        back = f"/node/{tpu_node}"
+        redirect = http_get_no_redirect(server.url + f"/refresh?back={back}")
+        check(redirect == (302, back), f"/refresh?back={back} answered {redirect}")
+    finally:
+        server.close()
+    print(f"native: /nodes (and ?page=2), /node/{tpu_node} (TPU section), "
+          f"/node/no-such-node 404, {pod_path} (TPU section), /refresh?back={back} 302")
+    torch.cuda.synchronize()
+    launches = LAUNCHES.n
+    print(f"viewport: forecast_mlp_forward launches={launches} (want {VIEWPORT_LAUNCHES})")
+    check(launches == VIEWPORT_LAUNCHES,
+          f"the drill-down and native views launched the kernel {launches} times")
+    return launches
+
+
+def re_cursor(body: str) -> str:
+    """The next-window cursor a windowed page links to."""
+    found = re.search(r'cursor=([A-Za-z0-9_-]+)" class="hl-res-link hl-cursor-next"', body)
+    if found is None:
+        raise SmokeFailure("the windowed page links no next window")
+    return found.group(1)
 
 
 def main() -> int:
@@ -847,10 +1084,21 @@ def main() -> int:
     serve_launches = dashboard_host_phase(torch, clock, smi)
 
     # 10. The fleet rollup on the card against its oracle, timed.
-    fleet_rollup_phase(torch, smi)
+    fleet_rows = fleet_rollup_phase(torch, smi)
 
     # 11. The cluster dashboard's pages over a socket.
     cluster_launches = cluster_dashboard_phase(torch, clock, smi)
+
+    # 12. The fleet drill-down: the region rollup against its oracle,
+    #     timed, then the host's drill-down and native views.
+    region_rows = region_rollup_phase(torch, smi)
+    viewport_launches = viewport_host_phase(torch, clock, smi)
+    print(json.dumps({"device_programs": [
+        {"name": "fleet_rollup", "route": "torch ops",
+         "replaces": "headlamp_tpu/analytics/fleet_jax.py:98", "by_nodes": fleet_rows},
+        {"name": "region_rollup", "route": "torch ops",
+         "replaces": "headlamp_tpu/analytics/fleet_jax.py:243", "by_nodes": region_rows},
+    ]}))
 
     # 8. The record.
     at = timings[SCALE_CHIPS]
@@ -861,12 +1109,13 @@ def main() -> int:
         "source": "headlamp_tpu_torch/kernels/forecast_mlp.cu",
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
         "launches": (page_launches + scale_launches + one_launches + serve_launches
-                     + cluster_launches),
+                     + cluster_launches + viewport_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
                              "dashboard_host": serve_launches,
-                             "cluster_dashboard": cluster_launches},
+                             "cluster_dashboard": cluster_launches,
+                             "fleet_drilldown": viewport_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -1,14 +1,16 @@
-"""Analytics — columnar fleet encoding and the fleet rollup on the device.
+"""Analytics — columnar fleet encoding and the fleet and region rollups
+on the device.
 
 The port of ``headlamp_tpu/analytics``: snapshots encode once into
 fixed-shape columns (``encode``), and every aggregate the overview needs
 comes out of one rollup of torch ops on the columns' device
 (``fleet_torch``), dispatched by the measured-winner policy in
-``stats``.
+``stats``. The viewport tree's per-cluster and per-slice sums come out of
+the region rollup over the same columns (``fleet_torch.region_rollup``).
 """
 
 from .encode import GENERATION_IDS, PHASE_IDS, FleetArrays, encode_fleet
-from .fleet_torch import fleet_rollup, rollup_to_dict
+from .fleet_torch import fleet_rollup, region_rollup, rollup_to_dict
 
 __all__ = [
     "FleetArrays",
@@ -16,5 +18,6 @@ __all__ = [
     "PHASE_IDS",
     "encode_fleet",
     "fleet_rollup",
+    "region_rollup",
     "rollup_to_dict",
 ]

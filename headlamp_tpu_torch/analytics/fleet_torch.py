@@ -23,6 +23,15 @@ What is held exactly to the JAX program:
 tensor on the device (each value is an integer below 2**53 or a float32,
 both exact in float64) and crosses to the host in one counted copy
 through ``runtime.transfer.fetch``, as JAX's one ``device_get`` does.
+
+The region rollup (`fleet_jax.py:153-318`) sums both drill-down levels
+of the viewport tree — per cluster and per slice — in the same way, from
+the same columns plus two per-node id columns the host builds
+(``viewport/tree.py``). Cluster ids are clamped into
+``REGION_CLUSTER_SEGMENTS`` and pods reach their region through
+sentinel-extended id columns, as in JAX. Every value is an integer count,
+so :func:`pack_region_rollup` packs the twelve vectors into one int64
+tensor for the one copy.
 """
 
 from __future__ import annotations
@@ -31,11 +40,12 @@ from typing import Any, Mapping
 
 import torch
 
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from .encode import GENERATION_IDS, PHASE_IDS, FleetArrays
 
-#: Phase index of 'Running' in the stable vocabulary.
+#: Phase indices of 'Running' and 'Pending' in the stable vocabulary.
 _RUNNING = PHASE_IDS.index("Running")
+_PENDING = PHASE_IDS.index("Pending")
 
 #: The columns the rollup reads, in its argument order.
 COLUMNS = (
@@ -234,3 +244,140 @@ def rollup_host_view(out: Mapping[str, Any], n_nodes: int) -> dict[str, Any]:
         }
     )
     return result
+
+
+#: Static cluster-axis segment count of the region rollup, as in JAX
+#: (`fleet_jax.py:159`). Fleets with more clusters clamp the overflow
+#: into the last segment.
+REGION_CLUSTER_SEGMENTS = 64
+
+#: The fleet columns the region rollup reads, around the two id columns.
+REGION_NODE_COLUMNS = ("node_capacity", "node_allocatable", "node_ready", "node_valid")
+REGION_POD_COLUMNS = ("pod_request", "pod_phase", "pod_node_idx", "pod_valid")
+
+#: The region rollup's vectors in packed order: six per cluster
+#: (``REGION_CLUSTER_SEGMENTS`` long), then six per slice (``N_pad``).
+REGION_KEYS = tuple(
+    f"{level}_{stat}"
+    for level in ("cluster", "slice")
+    for stat in ("capacity", "allocatable", "nodes", "ready", "in_use", "pending")
+)
+
+
+def local_region_aggregates(
+    node_capacity: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    node_ready: torch.Tensor,
+    node_valid: torch.Tensor,
+    node_cluster: torch.Tensor,
+    node_slice: torch.Tensor,
+    pod_request: torch.Tensor,
+    pod_phase: torch.Tensor,
+    pod_node_idx: torch.Tensor,
+    pod_valid: torch.Tensor,
+    *,
+    n_nodes_pad: int,
+    n_clusters: int = REGION_CLUSTER_SEGMENTS,
+) -> dict[str, torch.Tensor]:
+    """Per-region sums for both drill-down levels (`fleet_jax.py:162-239`):
+    cluster vectors [n_clusters] and slice vectors [n_nodes_pad]. Pods
+    reach their region through their node's ids, the id columns extended
+    by one sentinel row that the encoder's padding index
+    (``n_nodes_pad``, "no node") selects; the sentinel segment is sliced
+    off."""
+    cluster = node_cluster.clamp(0, n_clusters - 1) * node_valid
+    slc = node_slice * node_valid
+    running = ((pod_phase == _RUNNING) & (pod_valid == 1)).to(torch.int32)
+    pending = ((pod_phase == _PENDING) & (pod_valid == 1)).to(torch.int32)
+    req_running = pod_request * running
+    cluster_ext = torch.cat([cluster, cluster.new_full((1,), n_clusters)])
+    slice_ext = torch.cat([slc, slc.new_full((1,), n_nodes_pad)])
+    pod_cluster = cluster_ext.index_select(0, pod_node_idx)
+    pod_slice = slice_ext.index_select(0, pod_node_idx)
+
+    def per_cluster(values: torch.Tensor) -> torch.Tensor:
+        return _segment_sum(values, cluster, n_clusters)
+
+    def per_slice(values: torch.Tensor) -> torch.Tensor:
+        return _segment_sum(values, slc, n_nodes_pad)
+
+    return {
+        "cluster_capacity": per_cluster(node_capacity * node_valid),
+        "cluster_allocatable": per_cluster(node_allocatable * node_valid),
+        "cluster_nodes": per_cluster(node_valid),
+        "cluster_ready": per_cluster(node_ready * node_valid),
+        "cluster_in_use": _segment_sum(req_running, pod_cluster, n_clusters + 1)[:n_clusters],
+        "cluster_pending": _segment_sum(pending, pod_cluster, n_clusters + 1)[:n_clusters],
+        "slice_capacity": per_slice(node_capacity * node_valid),
+        "slice_allocatable": per_slice(node_allocatable * node_valid),
+        "slice_nodes": per_slice(node_valid),
+        "slice_ready": per_slice(node_ready * node_valid),
+        "slice_in_use": _segment_sum(req_running, pod_slice, n_nodes_pad + 1)[:n_nodes_pad],
+        "slice_pending": _segment_sum(pending, pod_slice, n_nodes_pad + 1)[:n_nodes_pad],
+    }
+
+
+def region_rollup(
+    node_capacity: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    node_ready: torch.Tensor,
+    node_valid: torch.Tensor,
+    node_cluster: torch.Tensor,
+    node_slice: torch.Tensor,
+    pod_request: torch.Tensor,
+    pod_phase: torch.Tensor,
+    pod_node_idx: torch.Tensor,
+    pod_valid: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """Both drill-down levels of the viewport tree in one pass on the
+    columns' device (`fleet_jax.py:243-272`): what crosses to the host is
+    a few region-sized vectors, never the node rows."""
+    return local_region_aggregates(
+        node_capacity,
+        node_allocatable,
+        node_ready,
+        node_valid,
+        node_cluster,
+        node_slice,
+        pod_request,
+        pod_phase,
+        pod_node_idx,
+        pod_valid,
+        n_nodes_pad=node_capacity.shape[0],
+    )
+
+
+def region_rollup_arrays(
+    fleet: FleetArrays, node_cluster: Any, node_slice: Any, device: DeviceLike = None
+) -> dict[str, torch.Tensor]:
+    """:func:`region_rollup` on ``device`` (CUDA unless the caller asks
+    for the CPU) over ``fleet``'s columns and the host-built per-node
+    region ids (padded to the fleet's node bucket). Columns already on
+    the device are used in place; numpy arrays are copied to it."""
+    dev = resolve_device(device)
+
+    def on_device(names: tuple[str, ...]) -> list[torch.Tensor]:
+        return [torch.as_tensor(getattr(fleet, name), device=dev) for name in names]
+
+    ids = [torch.as_tensor(node_cluster, device=dev), torch.as_tensor(node_slice, device=dev)]
+    return region_rollup(*on_device(REGION_NODE_COLUMNS), *ids, *on_device(REGION_POD_COLUMNS))
+
+
+def pack_region_rollup(out: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The twelve region vectors in one int64 tensor on their device, in
+    :data:`REGION_KEYS` order."""
+    return torch.cat([out[k].to(torch.int64) for k in REGION_KEYS])
+
+
+def unpack_region_rollup(packed: torch.Tensor) -> dict[str, Any]:
+    """Inverse of :func:`pack_region_rollup` on the host copy: numpy
+    vectors by name."""
+    values = packed.numpy()
+    n_slices = (values.size - 6 * REGION_CLUSTER_SEGMENTS) // 6
+    out: dict[str, Any] = {}
+    at = 0
+    for key in REGION_KEYS:
+        width = REGION_CLUSTER_SEGMENTS if key.startswith("cluster_") else n_slices
+        out[key] = values[at : at + width]
+        at += width
+    return out

@@ -2,9 +2,10 @@
 
 ``python -m headlamp_tpu_torch.cli overview --demo large`` renders the
 page the JAX package's CLI renders, through ``ui.vdom.render_text``:
-``overview``, ``nodes``, ``pods``, ``deviceplugins`` and ``topology``
-from one synced cluster snapshot (the Overview's aggregates from the
-fleet rollup on the CUDA device), and ``metrics`` with the forecast fit
+``overview``, ``nodes``, ``pods``, ``deviceplugins``, ``topology`` and
+``cluster-nodes`` (the native nodes table with the TPU columns) from one
+synced cluster snapshot (the Overview's aggregates from the fleet rollup
+on the CUDA device), and ``metrics`` with the forecast fit
 on the CUDA device and served by the fused CUDA kernel. ``--device cpu``
 runs the rollup, the fit and the kernel's plain version on the CPU
 instead. Without CUDA and without ``--device cpu`` it fails.
@@ -34,6 +35,7 @@ PAGES = {
     "deviceplugins": "/tpu/deviceplugins",
     "topology": "/tpu/topology",
     "metrics": "/tpu/metrics",
+    "cluster-nodes": "/nodes",
 }
 
 
@@ -51,7 +53,8 @@ def render_page(
     if page not in PAGES:
         raise ValueError(f"unknown page {page!r}: choose from {sorted(PAGES)}")
     dev = resolve_device(device)
-    route = register_plugin().route_for(PAGES[page])
+    registry = register_plugin()
+    route = registry.route_for(PAGES[page])
     assert route is not None
     if route.kind == "metrics":
         metrics = fetch_tpu_metrics(transport, clock=clock)
@@ -60,6 +63,8 @@ def render_page(
     snap = AcceleratorDataContext(transport, device=dev, clock=clock).sync()
     if route.kind == "topology":
         return render_text(route.component(snap))
+    if route.kind == "native-nodes":
+        return render_text(route.component(snap, now=clock(), registry=registry))
     return render_text(route.component(snap, now=clock()))
 
 

@@ -37,6 +37,13 @@ GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
 #: stamp it; slice grouping falls back to deterministic name ordering.
 GKE_TPU_WORKER_ID_LABEL = "cloud.google.com/gke-tpu-worker-id"
 
+#: Federation cluster membership (the viewport tree's first level).
+#: Multi-cluster fleets arrive through one aggregated snapshot; this label
+#: names the source cluster on every node. Nodes without it (every
+#: single-cluster deployment) fall into the implicit cluster "0" — the
+#: viewport tree is total over any fleet, labelled or not.
+HEADLAMP_CLUSTER_LABEL = "headlamp.io/cluster"
+
 # ---------------------------------------------------------------------------
 # TPU device plugin DaemonSet
 # ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ from .fixtures import (  # noqa: F401
     fleet_v5e4,
     fleet_v5p32,
     fleet_v5p32_degraded,
+    fleet_viewport,
     make_plain_node,
     make_plugin_daemonset,
     make_plugin_pod,

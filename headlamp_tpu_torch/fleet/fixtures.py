@@ -8,6 +8,8 @@ objects:
 - ``fleet_v5p32``  — v5p-32 multi-host pod slice: 16 chips over 4 hosts
 - ``fleet_v5p32_degraded`` — the same slice after a host drop
 - ``fleet_large``  — deterministic 1024-node stress fleet
+- ``fleet_viewport`` — the drill-down fleet: TPU hosts in labelled
+                     clusters of 32-host slices (16384 by default)
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..domain.constants import (
     GKE_TPU_ACCELERATOR_LABEL,
     GKE_TPU_TOPOLOGY_LABEL,
     GKE_TPU_WORKER_ID_LABEL,
+    HEADLAMP_CLUSTER_LABEL,
     TPU_PLUGIN_NAMESPACE,
     TPU_RESOURCE,
 )
@@ -54,6 +57,7 @@ def make_tpu_node(
     worker_id: int | None = None,
     age_seconds: int = 3600 * 24,
     uid: str | None = None,
+    cluster: str | None = None,
 ) -> dict[str, Any]:
     labels: dict[str, str] = {GKE_TPU_ACCELERATOR_LABEL: accelerator}
     if topology:
@@ -62,6 +66,8 @@ def make_tpu_node(
         labels[GKE_NODEPOOL_LABEL] = pool
     if worker_id is not None:
         labels[GKE_TPU_WORKER_ID_LABEL] = str(worker_id)
+    if cluster is not None:
+        labels[HEADLAMP_CLUSTER_LABEL] = cluster
     return {
         "apiVersion": "v1",
         "kind": "Node",
@@ -380,4 +386,65 @@ def fleet_large(n_nodes: int = 1024, seed: int = 42) -> dict[str, Any]:
         "nodes": nodes,
         "pods": pods,
         "daemonsets": [make_plugin_daemonset(desired=len(tpu_node_names))],
+    }
+
+
+def fleet_viewport(
+    n_nodes: int = 16384, seed: int = 7, clusters: int = 8
+) -> dict[str, Any]:
+    """The drill-down fleet. Every node is a TPU host stamped with a
+    :data:`HEADLAMP_CLUSTER_LABEL` value and a node pool, so the viewport
+    tree has real structure at every level: ``clusters`` clusters ×
+    ~32-host slices × 4 chips. Exactly 3 pods per 4 nodes, so the
+    encoder's power-of-two buckets come out SQUARE — (1024,1024),
+    (4096,4096), (16384,16384). Deterministic like every generator
+    here."""
+    rng = random.Random(seed)
+    nodes: list[dict[str, Any]] = []
+    pods: list[dict[str, Any]] = []
+    slice_hosts = 32
+
+    i = 0
+    while len(nodes) < n_nodes:
+        cluster = str(i % clusters)
+        pool = f"c{cluster}-slice-{i // clusters}"
+        for w in range(min(slice_hosts, n_nodes - len(nodes))):
+            nodes.append(
+                make_tpu_node(
+                    f"gke-c{cluster}-s{i // clusters}-w{w}",
+                    pool=pool,
+                    cluster=cluster,
+                    accelerator="tpu-v5-lite-podslice",
+                    topology="4x8",
+                    chips=4,
+                    worker_id=w,
+                    ready=rng.random() > 0.02,
+                    age_seconds=rng.randrange(3600, 3600 * 24 * 30),
+                )
+            )
+        i += 1
+
+    phases = ["Running"] * 8 + ["Pending", "Failed"]
+    for j in range(len(nodes)):
+        # Exactly 3 pods per 4 nodes: the pod count lands in the same
+        # power-of-two bucket as the node count.
+        if j % 4 == 3:
+            continue
+        phase = rng.choice(phases)
+        pods.append(
+            make_tpu_pod(
+                f"vp-workload-{j}",
+                namespace=f"team-{j % 5}",
+                node=nodes[j]["metadata"]["name"] if phase != "Pending" else None,
+                chips=4,
+                phase=phase,
+                age_seconds=rng.randrange(60, 3600 * 24 * 7),
+                waiting_reason="Unschedulable" if phase == "Pending" else None,
+            )
+        )
+
+    return {
+        "nodes": nodes,
+        "pods": pods,
+        "daemonsets": [make_plugin_daemonset(desired=len(nodes))],
     }

@@ -1,6 +1,7 @@
 """Pages — pure functions from snapshots to element trees: Overview,
-Nodes, Pods, DevicePlugins, Topology and Metrics, as in the JAX
-package."""
+Fleet (the drill-down), Nodes, Pods, DevicePlugins, Topology and
+Metrics, as in the JAX package; the native node and pod views are in
+``native``."""
 
 from .device_plugins import device_plugins_page
 from .metrics_page import metrics_page
@@ -8,6 +9,7 @@ from .nodes import nodes_page
 from .overview import overview_page
 from .pods import pods_page
 from .topology_page import topology_page
+from .viewport_page import viewport_page
 
 __all__ = [
     "device_plugins_page",
@@ -16,4 +18,5 @@ __all__ = [
     "overview_page",
     "pods_page",
     "topology_page",
+    "viewport_page",
 ]

@@ -1,13 +1,17 @@
-"""Plugin registration: the routes and sidebar entries the host serves.
+"""Plugin registration: the routes, sidebar entries, detail sections and
+column processors the host serves.
 
 The port's counterpart of ``headlamp_tpu/registration.py``, with the
-same ``SidebarEntry``, ``Route`` and ``Registry`` types.
-:func:`register_plugin` registers, in the JAX order
-(`registration.py:130-186`), only the routes whose page this package
-renders: the Overview at ``/tpu``, Nodes, Workloads, Device Plugin,
-Topology and Metrics. ``/tpu/fleet``, ``/tpu/trends``, the native detail
-views and the Intel pages are not registered, so the host answers them
-with a 404 and never with a stand-in page.
+same ``SidebarEntry``, ``Route``, ``DetailSection``, ``ColumnsProcessor``
+and ``Registry`` types. :func:`register_plugin` registers, in the JAX
+order (`registration.py:130-186`), the TPU half of the surface: the
+Overview at ``/tpu``, the Fleet drill-down at ``/tpu/fleet``, Nodes,
+Workloads, Device Plugin, Topology and Metrics, the native nodes table at
+``/nodes``, the TPU Node and Pod detail sections (rendered by the host's
+``/node/<name>`` and ``/pod/<namespace>/<name>`` views) and the TPU
+columns processor. ``/tpu/trends``, the debug pages and the Intel pages
+are not registered, so the host answers them with a 404 and never with a
+stand-in page.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from .integrations import build_node_tpu_columns, node_detail_section, pod_detail_section
 from .pages import (
     device_plugins_page,
     metrics_page,
@@ -22,7 +27,9 @@ from .pages import (
     overview_page,
     pods_page,
     topology_page,
+    viewport_page,
 )
+from .pages.native import native_nodes_page
 
 
 @dataclass(frozen=True)
@@ -39,7 +46,9 @@ class Route:
     name: str
     #: Page factory; hosts dispatch on ``kind``: 'snapshot' pages take
     #: (snap, now=…), 'metrics' takes the metrics snapshot and the
-    #: forecast view, 'topology' takes (snap, metrics=…).
+    #: forecast view, 'topology' takes (snap, metrics=…), 'viewport'
+    #: takes (snap, now=…, region=…) and 'native-nodes' takes
+    #: (snap, now=…, registry=…).
     component: Callable[..., Any]
     kind: str = "snapshot"
     #: True for routes whose component accepts ``page=``/``query=`` —
@@ -51,10 +60,28 @@ class Route:
     windowed: bool = False
 
 
+@dataclass(frozen=True)
+class DetailSection:
+    #: Kubernetes kind this section attaches to ('Node' | 'Pod') — the
+    #: reference guards on resource.kind (`index.tsx:153,168`).
+    resource_kind: str
+    component: Callable[..., Any]
+
+
+@dataclass(frozen=True)
+class ColumnsProcessor:
+    #: Table id to extend — the reference targets 'headlamp-nodes'
+    #: (`index.tsx:178`).
+    table_id: str
+    build_columns: Callable[[], list[dict[str, Any]]]
+
+
 @dataclass
 class Registry:
     sidebar_entries: list[SidebarEntry] = field(default_factory=list)
     routes: list[Route] = field(default_factory=list)
+    detail_sections: list[DetailSection] = field(default_factory=list)
+    columns_processors: list[ColumnsProcessor] = field(default_factory=list)
 
     def route_for(self, path: str) -> Route | None:
         for r in self.routes:
@@ -62,18 +89,23 @@ class Registry:
                 return r
         return None
 
+    def sections_for(self, resource_kind: str) -> list[DetailSection]:
+        return [s for s in self.detail_sections if s.resource_kind == resource_kind]
+
 
 #: The sidebar root the entries hang under, as in the JAX package.
 SIDEBAR_ROOT = "tpu"
 
 
 def register_plugin(registry: Registry | None = None) -> Registry:
-    """Populate a registry with the pages this package renders."""
+    """Populate a registry with the pages, sections and columns this
+    package renders."""
     reg = registry if registry is not None else Registry()
     reg.sidebar_entries.extend(
         [
             SidebarEntry(SIDEBAR_ROOT, "Cloud TPU", "/tpu", parent=None),
             SidebarEntry("tpu-overview", "Overview", "/tpu", parent=SIDEBAR_ROOT),
+            SidebarEntry("tpu-fleet", "Fleet", "/tpu/fleet", parent=SIDEBAR_ROOT),
             SidebarEntry("tpu-nodes", "Nodes", "/tpu/nodes", parent=SIDEBAR_ROOT),
             SidebarEntry("tpu-pods", "Workloads", "/tpu/pods", parent=SIDEBAR_ROOT),
             SidebarEntry(
@@ -81,16 +113,33 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             ),
             SidebarEntry("tpu-topology", "Topology", "/tpu/topology", parent=SIDEBAR_ROOT),
             SidebarEntry("tpu-metrics", "Metrics", "/tpu/metrics", parent=SIDEBAR_ROOT),
+            # The host's own native surface: the nodes table the column
+            # processors extend.
+            SidebarEntry("cluster", "Cluster", "/nodes", parent=None),
+            SidebarEntry("cluster-nodes", "Nodes", "/nodes", parent="cluster"),
         ]
     )
     reg.routes.extend(
         [
             Route("/tpu", "tpu-overview", overview_page),
+            # The drill-down: fleet → cluster → slice → node. Its kind
+            # dispatch forwards ?region= beside the cursor-window params.
+            Route("/tpu/fleet", "tpu-fleet", viewport_page, kind="viewport", windowed=True),
             Route("/tpu/nodes", "tpu-nodes", nodes_page, paged=True, windowed=True),
             Route("/tpu/pods", "tpu-pods", pods_page, windowed=True),
             Route("/tpu/deviceplugins", "tpu-deviceplugins", device_plugins_page),
             Route("/tpu/topology", "tpu-topology", topology_page, kind="topology"),
             Route("/tpu/metrics", "tpu-metrics", metrics_page, kind="metrics"),
+            Route(
+                "/nodes", "cluster-nodes", native_nodes_page, kind="native-nodes", paged=True
+            ),
         ]
     )
+    reg.detail_sections.extend(
+        [
+            DetailSection("Node", node_detail_section),
+            DetailSection("Pod", pod_detail_section),
+        ]
+    )
+    reg.columns_processors.append(ColumnsProcessor("headlamp-nodes", build_node_tpu_columns))
     return reg

@@ -5,18 +5,25 @@ over stdlib ``http.server``:
 
 - ``GET /tpu``                the Overview, its aggregates from the fleet
   rollup on the app's device (``analytics.stats.fleet_stats``);
+- ``GET /tpu/fleet``          the drill-down (fleet, ``?region=cluster/<c>``,
+  ``?region=cluster/<c>/slice/<s>`` with ``?limit=``/``?cursor=``), its
+  per-region sums from the region rollup on the app's device
+  (``viewport.viewport_tree``);
 - ``GET /tpu/nodes``, ``/tpu/pods``, ``/tpu/deviceplugins``,
   ``/tpu/topology``           the other snapshot pages (the node table
   paged by ``?page=``/``?q=`` or windowed by ``?limit=``/``?cursor=``,
   the pod table windowed; the topology heatmap from a peek of the
   metrics cache, never a fetch);
+- ``GET /nodes``, ``/node/<name>``, ``/pod/<namespace>/<name>`` the
+  native views with the registered TPU columns and detail sections (an
+  unknown node or pod is a 404);
 - ``GET /tpu/metrics``        the metrics page with its utilization
   forecast, fit on the app's device and served by the fused CUDA kernel
   ``forecast_mlp_forward`` on a card (its plain version on the CPU);
 - ``GET /refresh?back=<url>`` re-run the snapshot's imperative track,
   invalidate the metrics and forecast caches (and with
   ``recalibrate=1`` the rollup calibration and the device columns), then
-  redirect to a registered route;
+  redirect to a registered route or a node or pod detail path;
 - ``GET /healthz``            liveness and the runtime counters, as JSON;
 - ``GET /metricsz``           Prometheus text self-exposition;
 - ``GET /debug/traces``       recent request traces, as JSON.
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 import html
 import json
+import re
 import threading
 import time
 from functools import lru_cache
@@ -58,16 +66,23 @@ from ..models.service import ForecastView, compute_forecast_incremental
 from ..obs.metrics import TEXT_CONTENT_TYPE
 from ..obs.metrics import registry as metrics_registry
 from ..obs.trace import annotate, span, trace_request, trace_ring
+from ..pages.native import native_node_page, native_pod_page
 from ..registration import Registry, register_plugin
 from ..runtime.device_cache import warm_carries
 from ..runtime.refresh import Refresher
 from ..runtime.transfer import TransferBatch, transfer_stats
 from ..transport.api_proxy import Transport
-from ..ui import render_html
+from ..ui import Element, render_html
 from .style import STYLESHEET
 
 #: Paths the host answers itself, outside the registry.
 _OWN_ROUTES = ("/healthz", "/refresh", "/metricsz", "/debug/traces")
+
+#: The native detail paths (`app.py:65-70` of the JAX host): Kubernetes
+#: names only, so a detail path is a bounded route label and a safe
+#: redirect target.
+_NODE_DETAIL_RE = re.compile(r"^/node/([a-z0-9.-]{1,253})$")
+_POD_DETAIL_RE = re.compile(r"^/pod/([a-z0-9.-]{1,253})/([a-z0-9.-]{1,253})$")
 
 #: Route labels whose traces stay out of the ring: a probe polling
 #: /healthz or a scraper on /metricsz would evict every page trace, and
@@ -298,7 +313,13 @@ class DashboardApp:
         """Bounded-cardinality route label: unknown paths collapse to
         'other', so a scanner walking random paths mints no new labels."""
         route_path = urlparse(path).path.rstrip("/") or "/tpu"
-        if route_path in _OWN_ROUTES or self._registry.route_for(route_path) is not None:
+        if route_path in _OWN_ROUTES:
+            return route_path
+        if _NODE_DETAIL_RE.match(route_path):
+            return "/node/{name}"
+        if _POD_DETAIL_RE.match(route_path):
+            return "/pod/{namespace}/{name}"
+        if self._registry.route_for(route_path) is not None:
             return route_path
         return "other"
 
@@ -378,11 +399,32 @@ class DashboardApp:
                 rollup_stats.calibration.reset()
                 self._ctx.fleet_cache.invalidate()
             back = query.get("back", [self._home])[0]
-            # Only registered route paths may be redirect targets: no open
-            # redirects ('//evil', absolute URLs), no header injection.
-            if self._registry.route_for(back) is None:
+            # Only registered route paths and strictly-shaped native
+            # detail paths may be redirect targets: no open redirects
+            # ('//evil', absolute URLs), no header injection.
+            if self._registry.route_for(back) is None and not (
+                _NODE_DETAIL_RE.match(back) or _POD_DETAIL_RE.match(back)
+            ):
                 back = self._home
             return 302, back, ""
+
+        # The native views the detail sections inject into
+        # (`index.tsx:152-170`); a data-notfound page is a 404.
+        if node_match := _NODE_DETAIL_RE.match(route_path):
+            snap = self._synced_snapshot()
+            with span("page.component", kind="native-node-detail"):
+                el = native_node_page(
+                    snap, node_match.group(1), now=self._clock(), registry=self._registry
+                )
+            return self._detail_response(el, f"Node {node_match.group(1)}", route_path)
+        if pod_match := _POD_DETAIL_RE.match(route_path):
+            snap = self._synced_snapshot()
+            with span("page.component", kind="native-pod-detail"):
+                el = native_pod_page(
+                    snap, pod_match.group(1), pod_match.group(2), now=self._clock(),
+                    registry=self._registry,
+                )
+            return self._detail_response(el, f"Pod {pod_match.group(2)}", route_path)
 
         route = self._registry.route_for(route_path)
         if route is None:
@@ -419,11 +461,27 @@ class DashboardApp:
                 # Cache PEEK only: the heatmap must never pay the
                 # Prometheus chain.
                 el = route.component(snap, metrics=self._peek_metrics())
+            elif route.kind == "native-nodes":
+                el = route.component(snap, now=now, registry=self._registry, **paging)
+            elif route.kind == "viewport":
+                # ?region= names the drill-down level, capped like a
+                # Kubernetes name; the cursor window applies at slice
+                # depth only.
+                region = params.get("region", [""])[0][:253]
+                el = route.component(snap, now=now, region=region, **paging)
             else:
                 el = route.component(snap, now=now, **paging)
         with span("render.html"):
             body = self._page_html(route.name, render_html(el), route_path)
         return 200, "text/html", body
+
+    def _detail_response(self, el: Element, title: str, route_path: str) -> tuple[int, str, str]:
+        """A native detail view's response: 404 when the view is the
+        not-found page, else 200."""
+        status = 404 if el.props.get("data-notfound") else 200
+        with span("render.html"):
+            body = self._page_html(title, render_html(el), route_path)
+        return status, "text/html", body
 
     def _page_html(self, title: str, body: str, active: str = "") -> str:
         nav = _nav_html(

@@ -1,13 +1,14 @@
 """Cursor-windowed row selection over the snapshot.
 
 The port's copy of the parts of ``headlamp_tpu/viewport/window.py`` the
-node and pod tables use (`:55-265`), without region filtering (the
-``?region=`` argument arrives with the viewport tree).
+node and pod tables and the drill-down page use (`:55-265`); the trend
+series window waits for the trends page.
 
 The cost model: the first window cut from a new snapshot generation pays
-one O(N log N) sort per (collection, filter); the result is memoized on
-the snapshot view, and every later window — any client, any page depth —
-is a binary search plus an O(limit) slice.
+one O(N log N) sort per (collection, filter, region); the result is
+memoized on the snapshot view, and every later window — any client, any
+page depth — is a binary search plus an O(limit) slice. Region
+membership comes from the viewport tree (``tree.py``).
 
 Sort orders are the ones the legacy pages pinned: nodes not-ready-first
 then by name, pods by namespaced name. The sort KEY doubles as the
@@ -24,6 +25,7 @@ from typing import Any, Callable
 
 from ..domain import objects as obj
 from .cursor import SORT_NODES, SORT_PODS, decode_cursor, encode_cursor, query_hash
+from .tree import viewport_tree
 
 #: Default window size — one screenful of rows.
 DEFAULT_LIMIT = 64
@@ -126,31 +128,37 @@ def _pod_key(pod: Any) -> tuple[str]:
     return (f"{ns}/{name}" if ns else name,)
 
 
-def _sorted_nodes(state: Any, query: str) -> tuple[list[tuple], list[Any]]:
-    """(sorted keys, same-order nodes) for one filter — THE
+def _sorted_nodes(state: Any, query: str, region: str | None) -> tuple[list[tuple], list[Any]]:
+    """(sorted keys, same-order nodes) for one (filter, region) — THE
     per-generation O(N log N) pass."""
 
     def build() -> tuple[list[tuple], list[Any]]:
         nodes = state.nodes
+        if region is not None:
+            member = set(viewport_tree(state).members.get(region, ()))
+            nodes = [n for n in nodes if obj.name(n) in member]
         if query:
             needle = query.lower()
             nodes = [n for n in nodes if needle in obj.name(n).lower()]
         keyed = sorted(((_node_key(n), n) for n in nodes), key=lambda kv: kv[0])
         return [k for k, _n in keyed], [n for _k, n in keyed]
 
-    return _memoized(state.view, ("nodes", query_hash(query)), build)
+    return _memoized(state.view, ("nodes", query_hash(query), region or ""), build)
 
 
-def _sorted_pods(state: Any, query: str) -> tuple[list[tuple], list[Any]]:
+def _sorted_pods(state: Any, query: str, region: str | None) -> tuple[list[tuple], list[Any]]:
     def build() -> tuple[list[tuple], list[Any]]:
         pods = state.pods
+        if region is not None:
+            member = set(viewport_tree(state).members.get(region, ()))
+            pods = [p for p in pods if (obj.pod_node_name(p) or "") in member]
         if query:
             needle = query.lower()
             pods = [p for p in pods if needle in _pod_key(p)[0].lower()]
         keyed = sorted(((_pod_key(p), p) for p in pods), key=lambda kv: kv[0])
         return [k for k, _p in keyed], [p for _k, p in keyed]
 
-    return _memoized(state.view, ("pods", query_hash(query)), build)
+    return _memoized(state.view, ("pods", query_hash(query), region or ""), build)
 
 
 def _cut(
@@ -190,10 +198,16 @@ def _cut(
 
 
 def window_nodes(
-    state: Any, *, limit: int = DEFAULT_LIMIT, cursor: str | None = None, query: str = ""
+    state: Any,
+    *,
+    limit: int = DEFAULT_LIMIT,
+    cursor: str | None = None,
+    query: str = "",
+    region: str | None = None,
 ) -> Window:
-    """A cursor window of nodes, not-ready-first then by name."""
-    keys, items = _sorted_nodes(state, query)
+    """A cursor window of nodes, not-ready-first then by name —
+    optionally restricted to one drill-down region."""
+    keys, items = _sorted_nodes(state, query, region)
     return _cut(
         keys,
         items,
@@ -206,10 +220,16 @@ def window_nodes(
 
 
 def window_pods(
-    state: Any, *, limit: int = DEFAULT_LIMIT, cursor: str | None = None, query: str = ""
+    state: Any,
+    *,
+    limit: int = DEFAULT_LIMIT,
+    cursor: str | None = None,
+    query: str = "",
+    region: str | None = None,
 ) -> Window:
-    """A cursor window of pods in namespaced-name order."""
-    keys, items = _sorted_pods(state, query)
+    """A cursor window of pods in namespaced-name order — optionally
+    restricted to the pods on one drill-down region's nodes."""
+    keys, items = _sorted_pods(state, query, region)
     return _cut(
         keys,
         items,

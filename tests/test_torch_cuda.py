@@ -1,8 +1,9 @@
 """The port's CUDA kernel on the card: its wrapper against its plain
 version at widths and batches the CPU tests cannot reach, its operand
 checks, its replay inside a CUDA graph, the fit on the card against the
-same fit on the CPU, and the fleet rollup on the card against its Python
-oracle. The kernel has no CPU mode, so every test here needs a CUDA
+same fit on the CPU, the fleet rollup on the card against its Python
+oracle, and the viewport tree's region rollup on the card against
+``_host_sums``. The kernel has no CPU mode, so every test here needs a CUDA
 device and skips without one. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -269,3 +270,66 @@ def test_fleet_rollup_reads_columns_uploaded_by_another_thread(cuda):
         got = stats.fleet_stats(view, device=cuda, fleet_cache=cache, backend="cuda")
     assert cache.counters() == {"hits": 1, "misses": 0, "uploads": 1}
     assert got == stats.python_fleet_stats(view)
+
+
+def _viewport_state(n_nodes, device):
+    from headlamp_tpu_torch.context import AcceleratorDataContext
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+
+    ctx = AcceleratorDataContext(fleet_transport(fleet_viewport(n_nodes)), device=device)
+    return ctx.sync().provider("tpu")
+
+
+def _tree_against_host_sums(state):
+    """The tree's cluster and slice stats beside ``_host_sums``'."""
+    from headlamp_tpu_torch.analytics.fleet_torch import REGION_CLUSTER_SEGMENTS
+    from headlamp_tpu_torch.viewport import tree as vt
+
+    tree = vt.viewport_tree(state)
+    _, _, _, cluster_id, slice_id = vt._assignments(state.nodes)
+    clusters, slices = vt._host_sums(
+        state, cluster_id, slice_id, dict(tree.region_of), REGION_CLUSTER_SEGMENTS
+    )
+    got_clusters = [c.stats for c in tree.clusters]
+    got_slices = {s.path: s.stats for c in tree.clusters for s in c.children}
+    want_slices = {vt.region_path(*pair): slices[sid] for pair, sid in slice_id.items()}
+    return tree, (got_clusters, got_slices), (clusters, want_slices)
+
+
+@pytest.mark.parametrize("n_nodes", [1024, 16384])
+def test_region_rollup_on_card_matches_host_sums(cuda, n_nodes):
+    from headlamp_tpu_torch.runtime.transfer import transfer_stats
+
+    state = _viewport_state(n_nodes, cuda)
+    before = transfer_stats.blocking_gets
+    tree, got, want = _tree_against_host_sums(state)
+    assert tree.source == "device" and transfer_stats.blocking_gets == before + 1
+    assert got == want
+
+
+def test_region_tree_reads_columns_uploaded_by_another_thread(cuda):
+    # One thread uploads the columns on its own stream; another builds
+    # the tree on its own: the entry is published only once complete.
+    import threading
+
+    state = _viewport_state(4096, cuda)
+
+    def upload():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            assert state.fleet_cache.warm(state.view)
+
+    t = threading.Thread(target=upload)
+    t.start()
+    t.join()
+    out = {}
+
+    def build():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            out["result"] = _tree_against_host_sums(state)
+
+    t = threading.Thread(target=build)
+    t.start()
+    t.join()
+    tree, got, want = out["result"]
+    assert state.fleet_cache.counters() == {"hits": 1, "misses": 0, "uploads": 1}
+    assert tree.source == "device" and got == want

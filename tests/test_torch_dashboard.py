@@ -119,7 +119,7 @@ def test_refresh_unregistered_and_healthz():
     assert health["loading"] and health["analytics"]["calibrated"] is False
     assert app.handle("/refresh?back=/tpu")[:2] == (302, "/tpu")
     assert app.handle("/refresh?back=//evil.example")[:2] == (302, "/tpu")
-    for path in ("/tpu/fleet", "/tpu/trends", "/node/gke-v5p-pool-0-w0", "/intel"):
+    for path in ("/tpu/trends", "/debug/traces/html", "/sloz/html", "/intel"):
         assert app.handle(path)[0] == 404, path
 
     assert app.handle("/tpu")[0] == 200

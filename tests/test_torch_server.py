@@ -203,7 +203,7 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     assert len(warm_carries) == 1
 
 
-@pytest.mark.parametrize("path", ["/tpu/fleet", "/tpu/trends", "/intel", "/sloz"])
+@pytest.mark.parametrize("path", ["/debug/traces/html", "/tpu/trends", "/intel", "/sloz"])
 def test_unported_routes_are_404(path):
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     status, ctype, body = app.handle(path)
@@ -214,7 +214,7 @@ def test_unported_routes_are_404(path):
 def test_refresh_bumps_the_epoch_and_redirects_only_to_routes():
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     assert app.handle("/refresh?back=/tpu/metrics") == (302, "/tpu/metrics", "")
-    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/tpu/fleet"):
+    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/tpu/trends"):
         assert app.handle(f"/refresh?back={back}") == (302, "/tpu", "")
     assert app._cache_epoch == 5
 
