@@ -21,9 +21,15 @@ rollup on the card against its Python oracle at ``fleet_viewport`` 1024
 to 16384 nodes and past 64 clusters (timed, its kernels counted), the
 host serving ``/tpu/fleet`` at every depth over a socket at each size
 (one copy on the first paint of a snapshot, none after), and the native
-node, pod and nodes-table views. It exits non-zero at the first failure,
-and without CUDA or without the package beside it. The last line is one
-JSON object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+node, pod and nodes-table views. Then the live host: the background
+sync with list+watch at ``fleet_viewport`` 1024 and 16384 nodes (quiet
+ticks that list, upload and copy nothing; a changed tick whose new
+version is warmed onto the card off the request path; 410 Gone), the
+history-first forecast through the kernel, and ``/tpu/trends`` over a
+4096-chip history with its statistics on the card. It exits non-zero at
+the first failure, and without CUDA or without the package beside it.
+The last line is one JSON object:
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
@@ -121,6 +127,29 @@ VIEWPORT_TIMED = 9
 VIEWPORT_ENVELOPE = 3.0
 #: The drill-down and native views run no forecast.
 VIEWPORT_LAUNCHES = 0
+#: The live host's fleets (``fleet_viewport``), its loop interval, the
+#: quiet ticks held per fleet and the changed ticks timed per fleet.
+LIVE_NODES = (1024, 16384)
+LIVE_INTERVAL_S = 0.2
+LIVE_QUIET_TICKS = 3
+LIVE_CHANGED_TICKS = 3
+#: The first /tpu/fleet at 16384 nodes when the request path synced and
+#: encoded inline, before background sync (two runs; PERF.md section 5).
+INLINE_FIRST_FLEET_MS = (565.4, 626.5)
+#: The history-first forecast: 61 scrapes 60 s apart of the demo
+#: Prometheus's 64 range-query chips; a cold fit, then a warm refit.
+HISTORY_SCRAPES = 61
+LIVE_LAUNCHES = 2
+#: The trend page at full size: chips x 2 per-chip metrics x points.
+TREND_CHIPS = 4096
+TREND_POINTS = 288
+TREND_TIMED = 9
+#: Batched statistics vs the plain version: mean and slope, relative.
+STATS_RTOL = 1e-5
+STATS_ATOL = 1e-6
+#: FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data
+#: sheet); the statistics reduce in float64.
+FP64_FLOP_PER_S = 34e12
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -821,6 +850,385 @@ def viewport_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> int
     return launches
 
 
+def _wait_for(pred: Callable[[], bool], what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def live_sync_phase(torch: Any, clock: Callable[[], float], smi: str, n: int) -> dict[str, Any]:
+    """Step 13a at ``fleet_viewport(n)``: the background loop every
+    LIVE_INTERVAL_S with list+watch. Hydration lists each track once;
+    quiet ticks list nothing, watch twice, keep the version and upload
+    nothing, and repeated pages copy nothing; a changed tick (a MODIFIED
+    node, an ADDED pod) applies 2 events, bumps the version by 1 and
+    warms its columns once before the next request, whose trace has no
+    upload and whose rollup over the warm columns equals the Python
+    oracle; 410 Gone re-lists each track once. Returns the times."""
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport, make_tpu_pod
+    from headlamp_tpu_torch.obs.trace import trace_ring
+    from headlamp_tpu_torch.server import DashboardApp
+
+    transport = fleet_transport(fleet_viewport(n))
+    mono = [9000.0]
+    app = DashboardApp(transport, device="cuda", clock=clock, min_sync_interval_s=3600.0,
+                       monotonic=lambda: mono[0])
+    ctx, cache = app._ctx, app._ctx.fleet_cache
+    ticks: list[dict[str, Any]] = []
+    run_tick = app._background_tick
+
+    def recorded_tick() -> None:
+        run_tick()
+        ticks.append(app.last_tick_trace)
+
+    app._background_tick = recorded_tick  # every tick's trace, for its times
+
+    def lists(track: str) -> list[str]:
+        return [c for c in transport.calls if c.startswith(f"/api/v1/{track}?limit=")]
+
+    def counters() -> dict[str, Any]:
+        # Under the sync lock no tick is inside its sync.
+        with app._sync_lock:
+            return {
+                "lists": len(lists("nodes")) + len(lists("pods")),
+                "watch_calls": len(transport.watch_calls),
+                "watches": {k: dict(v) for k, v in ctx.watch_stats.items()},
+                "version": app._last_snapshot.provider("tpu").view.version,
+                "uploads": cache.counters()["uploads"],
+                "warms": app._background_counters["warms"],
+            }
+
+    def get(path: str) -> tuple[int, str, float]:
+        t0 = time.perf_counter()
+        status, body = http_get(server.url + path)
+        return status, body, (time.perf_counter() - t0) * 1e3
+
+    server = app.serve("127.0.0.1", 0)
+    out: dict[str, Any] = {"nodes": n}
+    try:
+        app.start_background_sync(LIVE_INTERVAL_S)
+        _wait_for(lambda: app._background_counters["ticks"] >= 1, "the hydrating tick")
+        pods = len(app._last_snapshot.all_pods)
+        want_lists = (math.ceil(n / 500), math.ceil(pods / 500))
+        got_lists = (len(lists("nodes")), len(lists("pods")))
+        check(got_lists == want_lists and lists("nodes")[0] == "/api/v1/nodes?limit=500",
+              f"hydration at {n} nodes listed {got_lists} pages, want {want_lists}")
+        check(app._background_counters["warms"] == 1 and cache.counters()["uploads"] == 1,
+              f"hydration at {n} nodes: {app._background_counters}, {cache.counters()}")
+        for path in ("/tpu", "/tpu/fleet"):  # first paints of the version
+            check(get(path)[0] == 200, f"GET {path} at {n} nodes")
+        # Quiet ticks are timed from here: the first paints above hold
+        # the interpreter for hundreds of ms at 16k nodes, and a tick
+        # beside them would time the paint, not the tick.
+        first_quiet = len(ticks)
+        before = counters()
+        _wait_for(lambda: counters()["watches"]["nodes"]["watches"]
+                  >= before["watches"]["nodes"]["watches"] + LIVE_QUIET_TICKS, "quiet ticks")
+        copies = []
+        for path in ("/tpu", "/tpu/fleet", "/tpu", "/tpu/fleet"):
+            status, _, _ = get(path)
+            copies.append(app.last_request_device_gets)
+            check(status == 200 and "device_cache.upload" not in span_totals(trace_ring.snapshot()[0]),
+                  f"quiet GET {path} at {n} nodes: {status}")
+        after = counters()
+        quiet = after["watches"]["nodes"]["watches"] - before["watches"]["nodes"]["watches"]
+        check(after["lists"] == before["lists"] and after["version"] == before["version"]
+              and after["uploads"] == before["uploads"] and after["warms"] == before["warms"]
+              and after["watch_calls"] - before["watch_calls"] == 2 * quiet
+              and after["watches"]["pods"]["watches"] - before["watches"]["pods"]["watches"] == quiet
+              and copies == [0, 0, 0, 0],
+              f"quiet ticks at {n} nodes: before {before}, after {after}, copies {copies}")
+        quiet_ms = [t["duration_ms"] for t in ticks[first_quiet:]
+                    if "device_cache.upload" not in span_totals(t)]
+        out["quiet_ticks"] = quiet
+
+        view = app._last_snapshot.provider("tpu").view
+        node_name = view.nodes[7]["metadata"]["name"]
+        changed_ms, warm_ms, first_fleet_ms = [], [], []
+        for i in range(LIVE_CHANGED_TICKS):
+            before = counters()
+            node = json.loads(json.dumps(app._last_snapshot.provider("tpu").nodes[7]))
+            node["metadata"]["labels"]["example.com/live-marker"] = str(i)
+            pod = make_tpu_pod(f"live-train-{i}", namespace="team-live", node=node_name)
+            n_ticks = len(ticks)
+            with app._sync_lock:  # both events land in one tick
+                transport.node_feed.push("MODIFIED", node)
+                transport.pod_feed.push("ADDED", pod)
+            app._background_wake.set()
+            _wait_for(lambda: counters()["warms"] == before["warms"] + 1, "the changed tick's warm")
+            after = counters()
+            events = [after["watches"][k]["events"] - before["watches"][k]["events"]
+                      for k in ("nodes", "pods")]
+            check(events == [1, 1] and after["version"] == before["version"] + 1
+                  and after["uploads"] == before["uploads"] + 1 and after["lists"] == before["lists"],
+                  f"changed tick {i} at {n} nodes: before {before}, after {after}")
+            _wait_for(lambda: any("device_cache.upload" in span_totals(t) for t in ticks[n_ticks:]),
+                      "the changed tick's trace")
+            changed = next(t for t in ticks[n_ticks:] if "device_cache.upload" in span_totals(t))
+            changed_ms.append(changed["duration_ms"])
+            if i == 0:
+                out["changed_tick_spans"] = span_totals(changed)
+            warm_ms.append(span_totals(changed)["device_cache.upload"])
+            status, body, _ = get("/tpu")
+            trace = trace_ring.snapshot()[0]
+            check(status == 200 and "device_cache.upload" not in span_totals(trace)
+                  and cache.counters()["uploads"] == after["uploads"],
+                  f"GET /tpu after changed tick {i} at {n} nodes: {status}, spans "
+                  f"{span_totals(trace)}, {cache.counters()}")
+            state = app._last_snapshot.provider("tpu")
+            got = stats.fleet_stats(state.view, device="cuda", fleet_cache=cache, backend="cuda")
+            want = stats.python_fleet_stats(state.view)
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            check(not bad and cache.counters()["uploads"] == after["uploads"],
+                  f"the rollup over the warm columns differs from the oracle at {n} nodes in {bad}")
+            status, body, ms = get("/tpu/fleet")
+            check(status == 200 and "<dt>Rollup source</dt><dd>device</dd>" in body,
+                  f"first GET /tpu/fleet after changed tick {i} at {n} nodes: {status}")
+            first_fleet_ms.append(ms)
+            if i == 0:
+                out["first_fleet_trace"] = span_totals(trace_ring.snapshot()[0])
+
+        before = counters()
+        snap = app._last_snapshot
+        relist_pages = math.ceil(len(snap.all_nodes) / 500) + math.ceil((len(snap.all_pods) + 1) / 500)
+        node = json.loads(json.dumps(snap.provider("tpu").nodes[7]))
+        node["metadata"]["labels"]["example.com/live-marker"] = "gone"
+        with app._sync_lock:  # an event each, then compaction: both cursors expire
+            transport.node_feed.push("MODIFIED", node)
+            transport.pod_feed.push("ADDED", make_tpu_pod("live-gone", namespace="team-live"))
+            transport.node_feed.compact()
+            transport.pod_feed.compact()
+        app._background_wake.set()
+        _wait_for(lambda: counters()["watches"]["pods"]["relists"] == before["watches"]["pods"]["relists"] + 1
+                  and counters()["watches"]["nodes"]["relists"] == before["watches"]["nodes"]["relists"] + 1,
+                  "the re-lists after 410 Gone")
+        after = counters()
+        check(after["version"] == before["version"] + 1
+              and after["lists"] - before["lists"] == relist_pages,
+              f"410 Gone at {n} nodes: before {before}, after {after}")
+        health = json.loads(http_get(server.url + "/healthz")[1])
+        check(health["ok"] and health["background_sync"]
+              and health["runtime"]["background"]["warm_errors"] == 0,
+              f"/healthz at {n} nodes: ok {health['ok']}, {health['runtime']['background']}")
+    finally:
+        server.close()
+    check(not any(t.is_alive() for t in app._background_threads), "the loop outlived close()")
+    out.update(
+        quiet_tick_ms=statistics.median(quiet_ms), changed_tick_ms=statistics.median(changed_ms),
+        warm_upload_ms=statistics.median(warm_ms), first_fleet_ms=first_fleet_ms,
+        quiet_all=quiet_ms, changed_all=changed_ms, warm_all=warm_ms,
+        watch=health["runtime"]["watch"],
+    )
+    inline = (f"; with an inline sync and encode it took {INLINE_FIRST_FLEET_MS[0]} / "
+              f"{INLINE_FIRST_FLEET_MS[1]} ms" if n == 16384 else "")
+    print(f"live: {n} nodes ({pods} pods): hydration {want_lists[0]}+{want_lists[1]} LIST pages, 1 warm; "
+          f"{quiet} quiet ticks: 0 LISTs, 2 watches each, same version, 0 uploads, copies {copies}; "
+          f"{LIVE_CHANGED_TICKS} changed ticks: 2 events, version +1, 1 warm upload each before the "
+          f"next request, no device_cache.upload on /tpu, rollup equal to python_fleet_stats; "
+          f"410 Gone: 1 re-list per track, version +1; watch {out['watch']}")
+    print(f"live: {n} nodes: tick p50 quiet {out['quiet_tick_ms']:.3f} ms (of {len(quiet_ms)}), "
+          f"changed {out['changed_tick_ms']:.3f} ms; warm upload p50 {out['warm_upload_ms']:.3f} ms; "
+          f"first /tpu/fleet after a change {', '.join(f'{v:.1f}' for v in first_fleet_ms)} ms over "
+          f"the socket{inline}; its spans {out['first_fleet_trace']}; a changed tick's spans "
+          f"{out['changed_tick_spans']}; a quiet tick's {span_totals(ticks[first_quiet])}; on {smi}")
+    return out
+
+
+def history_forecast_phase(torch: Any, clock: Callable[[], float], smi: str) -> int:
+    """Step 13b: an app whose history store holds HISTORY_SCRAPES scrapes
+    60 s apart of the demo Prometheus's 64 chips serves /tpu/metrics
+    cold and again after the forecast TTL: data_source "history", paths
+    cuda then cuda-warm, no range query, 2 kernel launches; the cold
+    forecast against the same fit called directly on the card
+    (KERNEL_TOL) and on the CPU (PAGE_FIT_TOL). Returns the launches."""
+    from types import SimpleNamespace
+
+    from headlamp_tpu_torch.metrics.client import fetch_tpu_metrics
+    from headlamp_tpu_torch.models.forecast import ForecastConfig, synthetic_telemetry
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.models.service import forecast_from_history_incremental
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    cfg = ForecastConfig()
+    mono = [20000.0]
+    transport = make_demo_transport("large")
+    chips = fetch_tpu_metrics(make_demo_transport("large"), clock=clock).chips[:64]
+    values = synthetic_telemetry(64, HISTORY_SCRAPES, torch.Generator().manual_seed(7),
+                                 device="cpu").tolist()
+    warm_carries.invalidate()
+    app = DashboardApp(transport, device="cuda", clock=clock, monotonic=lambda: mono[0])
+    for step in range(HISTORY_SCRAPES):
+        app.history.record_scrape(SimpleNamespace(chips=[
+            SimpleNamespace(node=c.node, accelerator_id=c.accelerator_id,
+                            tensorcore_utilization=values[i][step], duty_cycle=None)
+            for i, c in enumerate(chips)
+        ], fetch_ms=None))
+        mono[0] += 60.0
+
+    def forecast_view() -> Any:
+        m = app._cached_metrics()
+        return app._forecast_refresher.peek(app._metrics_key(m), epoch=app._cache_epoch)
+
+    server = app.serve("127.0.0.1", 0)
+    LAUNCHES.reset()
+    try:
+        t0 = time.perf_counter()
+        status, body = http_get(server.url + "/tpu/metrics")
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        cold = forecast_view()
+        history = app.history.utilization_history(clock=clock, min_points=cfg.window + cfg.horizon)
+        check(status == 200 and "history history" in body and cold.data_source == "history"
+              and cold.inference_path == "cuda" and len(cold.chips) == 64,
+              f"cold history GET: {status}, {cold.data_source}, {cold.inference_path}")
+        mono[0] += app.FORECAST_TTL_S + 1
+        status, _ = http_get(server.url + "/tpu/metrics")
+        check(status == 200 and app._forecast_refresher.drain(), "the warm refit did not finish")
+        warm = forecast_view()
+        check(warm.data_source == "history" and warm.inference_path == "cuda-warm",
+              f"warm history refit: {warm.data_source}, {warm.inference_path}")
+        torch.cuda.synchronize()
+        launches = LAUNCHES.n
+        ranges = [c for c in transport.calls if "query_range" in c]
+        check(launches == LIVE_LAUNCHES and not ranges,
+              f"history path: {launches} launches (want {LIVE_LAUNCHES}), {len(ranges)} range queries")
+    finally:
+        server.close()
+    direct, _ = forecast_from_history_incremental(history, device="cuda")
+    on_cpu, _ = forecast_from_history_incremental(history, device="cpu")
+
+    def diff(a: Any, b: Any) -> float:
+        peaks = {(c.node, c.accelerator_id): c.predicted_peak for c in b.chips}
+        return max(abs(c.predicted_peak - peaks[(c.node, c.accelerator_id)]) for c in a.chips)
+
+    kernel_diff, cpu_diff = diff(cold, direct), diff(cold, on_cpu)
+    check(kernel_diff <= KERNEL_TOL and cpu_diff <= PAGE_FIT_TOL,
+          f"history forecast vs direct {kernel_diff} (tol {KERNEL_TOL}), vs CPU {cpu_diff} "
+          f"(tol {PAGE_FIT_TOL})")
+    print(f"live: history-first forecast, {HISTORY_SCRAPES} scrapes x 64 chips: cold GET "
+          f"{cold_ms:.1f} ms (fit_ms {cold.fit_ms}), data_source history, paths cuda then cuda-warm, "
+          f"0 range queries, forecast_mlp_forward launches={launches} (want {LIVE_LAUNCHES}); "
+          f"predicted peaks vs the direct fit {kernel_diff:.3e} (tol {KERNEL_TOL:g}), vs the CPU "
+          f"{cpu_diff:.3e} (tol {PAGE_FIT_TOL:g}); on {smi}")
+    return launches
+
+
+def trends_phase(torch: Any, clock: Callable[[], float], smi: str) -> list[dict[str, Any]]:
+    """Step 13c: /tpu/trends over TREND_CHIPS chips x 2 metrics x
+    TREND_POINTS points: the grouped page, the browse page and its next
+    window, one copy each; their statistics and every series' batched
+    statistics against the plain version; the paint p50 and the
+    statistics program's device time. Returns the device-program rows."""
+    import numpy as np
+
+    from headlamp_tpu_torch.analytics.trends import (
+        python_series_stats,
+        series_stats_batch,
+        series_stats_tensor,
+    )
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    mono = [50000.0]
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       monotonic=lambda: mono[0])
+    keys = [(f"trend-node-{c // 4}", str(c % 4)) for c in range(TREND_CHIPS)]
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    for step in range(TREND_POINTS):
+        util = rng.random(TREND_CHIPS).tolist()
+        duty = rng.random(TREND_CHIPS).tolist()
+        app.history.append_many(
+            [("chip.tensorcore_utilization", k, u) for k, u in zip(keys, util)]
+            + [("chip.duty_cycle", k, d) for k, d in zip(keys, duty)]
+        )
+        mono[0] += 60.0
+    fill_s = time.perf_counter() - t0
+
+    def close_enough(got: dict[str, float], want: dict[str, float]) -> bool:
+        return all(got[k] == want[k] for k in ("n", "latest", "min", "max")) and all(
+            abs(got[k] - want[k]) <= STATS_ATOL + STATS_RTOL * abs(want[k])
+            for k in ("mean", "slope_per_step"))
+
+    server = app.serve("127.0.0.1", 0)
+    paint_ms: list[float] = []
+    try:
+        browse = "/tpu/trends?metric=chip.tensorcore_utilization&limit=64"
+        status, body = http_get(server.url + browse)
+        cursor = re_cursor(body)
+        for path, text in (("/tpu/trends", f"browse all {TREND_CHIPS} series"),
+                           (browse, f"rows 1–64 of {TREND_CHIPS}"),
+                           (f"{browse}&cursor={cursor}", f"rows 65–128 of {TREND_CHIPS}")):
+            status, body = http_get(server.url + path)
+            check(status == 200 and text in body and app.last_request_device_gets == 1,
+                  f"GET {path}: {status}, {text!r} {'found' if text in body else 'missing'}, "
+                  f"copies {app.last_request_device_gets}")
+        for _ in range(TREND_TIMED):
+            t0 = time.perf_counter()
+            status, _ = http_get(server.url + "/tpu/trends")
+            paint_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"GET /tpu/trends answered {status}")
+    finally:
+        server.close()
+    views = [app.history.trend_view(window_s=21600.0),
+             app.history.trend_view(window_s=21600.0, metric="chip.tensorcore_utilization",
+                                    series_limit=64)]
+    painted = [s for g in views[0]["groups"] for s in g["series"]] + views[1]["browse"]["series"]
+    bad = [s["label"] for s in painted
+           if not close_enough(s["stats"], python_series_stats([v for _, v in s["points"]]))]
+    check(not bad, f"the painted statistics differ from the plain version for {bad[:4]}")
+    every = [app.history.series(m, k)[1] for m in ("chip.tensorcore_utilization", "chip.duty_cycle")
+             for k in keys]
+    batched = series_stats_batch(every, device="cuda")
+    bad = [i for i, (got, vals) in enumerate(zip(batched, every))
+           if not close_enough(got, python_series_stats(vals))]
+    check(not bad, f"the batched statistics of {len(bad)} of {len(every)} series differ")
+    rows = []
+    for label, series in (("browse page", [[v for _, v in s["points"]] for s in views[1]["browse"]["series"]]),
+                          ("every series", every)):
+        n_series, width = len(series), max(len(v) for v in series)
+        vals = torch.tensor(series, dtype=torch.float32, device="cuda")
+        lengths = torch.full((n_series,), width, dtype=torch.int32, device="cuda")
+        device_ms, _ = time_device_ms(lambda: series_stats_tensor(vals, lengths))
+        events = device_event_names(torch, lambda: series_stats_tensor(vals, lengths))
+        kernels = [e for e in events if not e.startswith(("Memcpy", "Memset"))]
+        plain_ms = p50_ms(lambda: [python_series_stats(v) for v in series], 3)
+        batch_ms = p50_ms(lambda: series_stats_batch(series, device="cuda"), 9)
+        nbytes = 4 * n_series * width + 4 * n_series + 8 * 6 * n_series
+        flop = 12 * n_series * width
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flop / FP64_FLOP_PER_S * 1e3
+        rows.append(dict(series=n_series, points=width, ms=device_ms, batch_ms=batch_ms,
+                         kernels=len(kernels), device_events=len(events),
+                         plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        print(f"live: trend statistics, {label} ({n_series} x {width}): device_ms={device_ms:.6f}, "
+              f"series_stats_batch p50 {batch_ms:.3f} ms (pad, upload, program, one copy), plain "
+              f"Python {plain_ms:.3f} ms, bound_ms={rows[-1]['bound_ms']:.6f} ({rows[-1]['bound_by']}); "
+              f"{len(kernels)} kernels and {len(events)} device events per program; "
+              f"equal to the plain version (n, latest, min, max exact; mean, slope {STATS_RTOL:g} rel)")
+    print(f"live: /tpu/trends over {TREND_CHIPS} chips x 2 metrics x {TREND_POINTS} points (filled in "
+          f"{fill_s:.1f} s): grouped, browse (limit 64) and its next window 200 with 1 copy each; "
+          f"paint p50 {statistics.median(paint_ms):.2f} ms of {TREND_TIMED} "
+          f"({', '.join(f'{v:.1f}' for v in paint_ms)}); on {smi}")
+    return rows
+
+
+def live_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, list, list]:
+    """Step 13: the live host. Returns the forecast kernel's launches on
+    its paths, the sync rows and the trend statistics rows."""
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+
+    LAUNCHES.reset()
+    sync_rows = [live_sync_phase(torch, clock, smi, n) for n in LIVE_NODES]
+    torch.cuda.synchronize()
+    check(LAUNCHES.n == 0, f"the background sync launched the forecast kernel {LAUNCHES.n} times")
+    launches = history_forecast_phase(torch, clock, smi)
+    trend_rows = trends_phase(torch, clock, smi)
+    return launches, sync_rows, trend_rows
+
+
 def re_cursor(body: str) -> str:
     """The next-window cursor a windowed page links to."""
     found = re.search(r'cursor=([A-Za-z0-9_-]+)" class="hl-res-link hl-cursor-next"', body)
@@ -1093,11 +1501,17 @@ def main() -> int:
     #     timed, then the host's drill-down and native views.
     region_rows = region_rollup_phase(torch, smi)
     viewport_launches = viewport_host_phase(torch, clock, smi)
+
+    # 13. The live host: background sync with list+watch, the warm, 410
+    #     Gone, the history-first forecast and the trend page.
+    live_launches, _sync_rows, trend_rows = live_host_phase(torch, clock, smi)
     print(json.dumps({"device_programs": [
         {"name": "fleet_rollup", "route": "torch ops",
          "replaces": "headlamp_tpu/analytics/fleet_jax.py:98", "by_nodes": fleet_rows},
         {"name": "region_rollup", "route": "torch ops",
          "replaces": "headlamp_tpu/analytics/fleet_jax.py:243", "by_nodes": region_rows},
+        {"name": "trend_stats", "route": "torch ops",
+         "replaces": "headlamp_tpu/analytics/trends.py:15", "by_series": trend_rows},
     ]}))
 
     # 8. The record.
@@ -1109,13 +1523,14 @@ def main() -> int:
         "source": "headlamp_tpu_torch/kernels/forecast_mlp.cu",
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
         "launches": (page_launches + scale_launches + one_launches + serve_launches
-                     + cluster_launches + viewport_launches),
+                     + cluster_launches + viewport_launches + live_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
                              "dashboard_host": serve_launches,
                              "cluster_dashboard": cluster_launches,
-                             "fleet_drilldown": viewport_launches},
+                             "fleet_drilldown": viewport_launches,
+                             "live_host": live_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -10,13 +10,17 @@ reference and nothing here imports it or JAX.
 - ``models``     — the utilization forecaster (``nn.Module``, explicit
                    Adam fit, warm starts) and its fused inference kernel.
 - ``kernels``    — hand-written CUDA C++ for ``sm_90a`` and its build step.
-- ``transport``  — the ``Transport`` protocol and ``MockTransport``.
+- ``transport``  — the ``Transport`` protocol, ``MockTransport`` and the
+                   ``WatchFeed`` behind its watchable lists.
 - ``fleet``      — deterministic TPU fleet fixtures.
 - ``metrics``    — Prometheus client: discovery, batched instant queries,
                    range-query utilization history.
 - ``server``     — the HTTP dashboard host
-                   (``python -m headlamp_tpu_torch.server --demo large``)
+                   (``python -m headlamp_tpu_torch.server --demo large``,
+                   ``--background-sync SECONDS`` for the list+watch loop)
                    and demo transports with synthetic Prometheus series.
+- ``history``    — the bounded history store behind ``/tpu/trends`` and
+                   the history-first forecast.
 - ``runtime``    — stale-while-revalidate refresher, warm-carry store and
                    device-to-host transfer funnel behind the host.
 - ``obs``        — request tracing and the ``/metricsz`` registry.

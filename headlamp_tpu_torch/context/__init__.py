@@ -1,8 +1,9 @@
 """State layer — the provider-agnostic AcceleratorDataContext.
 
 The port's copy of ``headlamp_tpu/context``: one snapshot of the
-cluster, built from paginated node and pod lists plus each provider's
-fallback chains, which pages read and never the transport.
+cluster, built from paginated node and pod lists (kept current by
+list+watch once enabled) plus each provider's fallback chains, which
+pages read and never the transport.
 """
 
 from .accelerator_context import (

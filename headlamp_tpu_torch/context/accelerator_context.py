@@ -1,13 +1,18 @@
 """AcceleratorDataContext — single source of truth for cluster state.
 
-The port's copy of ``headlamp_tpu/context/accelerator_context.py``, as
-the JAX context runs with ``watch=False`` (its default) and one
-provider:
+The port's copy of ``headlamp_tpu/context/accelerator_context.py``, with
+one provider:
 
 - **Reactive track**: node + all-namespace pod lists (the ``useList``
-  analogue, `IntelGpuDataContext.tsx:98-99`), re-listed paginated on
-  every sync. A failure leaves the previous list in place and records
-  the error stream.
+  analogue, `IntelGpuDataContext.tsx:98-99`). Fetched paginated on the
+  first sync; with watch enabled (``enable_watch``, turned on by the
+  server's background sync) later syncs poll a bounded
+  ``watch=true&resourceVersion=`` delta stream and apply
+  ADDED/MODIFIED/DELETED events to per-track object stores, re-listing
+  only on 410 Gone or a failed watch. The node track runs on one
+  persistent worker thread while the calling thread runs the pod track.
+  A failure leaves the previous list in place and records the error
+  stream.
 - **Imperative track**: per-provider workload objects (DaemonSets) and
   plugin daemon pods via fallback chains with per-request timeouts,
   silent per-path failure, and UID dedup (`:113-190`). Workload-source
@@ -16,17 +21,17 @@ provider:
   reference's ``refreshKey`` effect (`:109-111,190`); ``sync()`` runs
   both tracks.
 
-The watch protocol, and the thread that runs the node track beside the
-pod track while a watch window blocks, arrive with the real transport;
-without watch the two lists are fetched one after the other.
-
 Derived per-provider views are computed once per sync, not per page
 render. Each snapshot's views carry a monotone ``version``, the key of
-the device-resident fleet columns (``runtime.device_cache``).
+the device-resident fleet columns (``runtime.device_cache``). A clean
+tick (a quiet watch, unchanged imperative results, stable error
+streams) keeps the snapshot and its version, so the columns stay on the
+device.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import time
 import urllib.parse
 from dataclasses import dataclass, replace
@@ -44,6 +49,12 @@ from .sources import (
     default_sources,
     workload_matches_provider,
 )
+
+
+class _WatchExpired(Exception):
+    """The watch cursor predates the apiserver's retained window (410
+    Gone, as an HTTP status or an ERROR event): the protocol's signal to
+    resync with a full re-list."""
 
 
 @dataclass
@@ -148,6 +159,10 @@ class AcceleratorDataContext:
     #: Runaway-loop backstop for a server that keeps returning continue
     #: tokens (200 pages × 500 = 100k objects).
     MAX_PAGES = 200
+    #: Server-side watch window (``timeoutSeconds=``): the apiserver holds
+    #: the bounded watch open this long collecting events. Short, because
+    #: each sync is a delta poll; the background loop sets the cadence.
+    WATCH_WINDOW_S = 1.0
 
     def __init__(
         self,
@@ -155,6 +170,7 @@ class AcceleratorDataContext:
         *,
         device: DeviceLike = None,
         clock: Callable[[], float] = time.time,
+        watch: bool = False,
     ) -> None:
         self._device = resolve_device(device)
         self.fleet_cache = DeviceFleetCache(self._device)
@@ -166,11 +182,28 @@ class AcceleratorDataContext:
         # displayed timestamp. Elapsed-time telemetry (sync coalescing,
         # cache TTLs) lives in the server app on its monotonic clock.
         self._clock = clock
+        #: Incremental reactive syncs (list+watch). Off by default: a
+        #: one-shot render or an infrequent inline sync gains nothing
+        #: from a delta protocol; the server's background loop turns it
+        #: on (``DashboardApp.start_background_sync``).
+        self._watch_enabled = watch
 
         self._all_nodes: list[Any] | None = None
         self._all_pods: list[Any] | None = None
         self._node_error: str | None = None
         self._pod_error: str | None = None
+        #: Per-track object store (key -> object, insertion-ordered) and
+        #: watch cursor. An empty cursor means no successful LIST yet:
+        #: watch stays disarmed until one lands.
+        self._track_store: dict[str, dict[str, Any]] = {"nodes": {}, "pods": {}}
+        self._track_rv: dict[str, str] = {"nodes": "", "pods": ""}
+        #: Full re-lists, watch polls and applied events per track.
+        self.watch_stats: dict[str, dict[str, int]] = {
+            "nodes": {"relists": 0, "watches": 0, "events": 0},
+            "pods": {"relists": 0, "watches": 0, "events": 0},
+        }
+        #: The node track's worker, created on the first sync.
+        self._reactive_pool: concurrent.futures.ThreadPoolExecutor | None = None
         self._workloads: dict[str, list[Any]] = {}
         self._workload_available: dict[str, bool] = {}
         self._fallback_plugin_pods: dict[str, list[Any]] = {}
@@ -183,26 +216,30 @@ class AcceleratorDataContext:
         #: generation: unchanged fleet ⇒ same version ⇒ the device
         #: columns stay valid.
         self._snapshot_generation = 0
-        #: Set by either track when a sync changed state (a re-list ran,
-        #: imperative results differed, an error stream flipped). Without
-        #: watch every successful sync re-lists, so only a sync whose
-        #: lists both failed can be clean.
+        #: Set by either track when a sync changed state (watch events
+        #: applied, a re-list ran, imperative results differed, an error
+        #: stream flipped). Without watch every successful sync re-lists;
+        #: with it a quiet tick is clean. Written from the reactive worker
+        #: too: a bool store is GIL-atomic, and within a sync it only goes
+        #: from False to True.
         self._changed = True
 
     # ------------------------------------------------------------------
     # Track 1: reactive lists
     # ------------------------------------------------------------------
 
-    def _list_paginated(self, path: str) -> list[Any]:
+    def _list_paginated(self, path: str) -> tuple[list[Any], str]:
         """Full list via ``limit=N&continue=<token>`` chunks — the
         fleet-scale replacement for the reference's single unpaginated
         ``useList`` GET: on a 1 000+ node cluster one monolithic list
         cannot finish inside the per-request timeout, while every
         500-object page can. Each page request gets the full
         ``timeout_s``. Any mid-chain failure raises; the caller keeps the
-        previous good list."""
+        previous good list. Returns ``(items, resourceVersion)``: the
+        first page's list RV, the cursor a later watch resumes from."""
         items: list[Any] = []
         continue_token = ""
+        resource_version = ""
         sep = "&" if "?" in path else "?"
         for _ in range(self.MAX_PAGES):
             url = f"{path}{sep}limit={self.PAGE_LIMIT}"
@@ -215,27 +252,129 @@ class AcceleratorDataContext:
                 metadata = data.get("metadata")
                 if isinstance(metadata, Mapping):
                     continue_token = str(metadata.get("continue") or "")
+                    if not resource_version:
+                        resource_version = str(metadata.get("resourceVersion") or "")
             if not continue_token:
-                return items
+                return items, resource_version
         raise ApiError(path, f"list did not terminate within {self.MAX_PAGES} pages")
 
-    def _sync_track(self, track: str, path: str) -> tuple[list[Any] | None, str | None]:
-        """One reactive list: (items, None), or (None, the stream's
-        error) when the list failed."""
+    def enable_watch(self, enabled: bool = True) -> None:
+        """Switch the reactive track to incremental list+watch syncs.
+        Takes effect on the next ``sync()``; the first one after a cold
+        start still pays a full LIST (there is no cursor yet)."""
+        self._watch_enabled = enabled
+
+    @staticmethod
+    def _obj_key(o: Any) -> str:
+        """Store key: the UID when present (the identity Kubernetes
+        dedups by), the name otherwise."""
+        return obj.uid(o) or obj.name(o)
+
+    def _watch_path(self, path: str, resource_version: str) -> str:
+        sep = "&" if "?" in path else "?"
+        return (
+            f"{path}{sep}watch=true"
+            f"&resourceVersion={urllib.parse.quote(resource_version, safe='')}"
+            "&allowWatchBookmarks=true"
+            f"&timeoutSeconds={max(int(self.WATCH_WINDOW_S), 1)}"
+        )
+
+    def _apply_watch_events(self, track: str, events: list[Any]) -> int:
+        """Apply a watch response to the track's store; returns the
+        object events applied. Raises :class:`_WatchExpired` on a 410
+        ERROR event and :class:`ApiError` on any other ERROR; both make
+        the caller re-list. ADDED appends (or keeps the place of a known
+        key), MODIFIED keeps its place, DELETED removes: the store's
+        order is the page order."""
+        store = self._track_store[track]
+        applied = 0
+        for event in events:
+            if not isinstance(event, Mapping):
+                continue
+            etype = str(event.get("type", ""))
+            payload = event.get("object")
+            if etype == "ERROR":
+                code = payload.get("code") if isinstance(payload, Mapping) else None
+                if code == 410:
+                    raise _WatchExpired()
+                raise ApiError(track, f"watch ERROR event: {payload}")
+            if not isinstance(payload, Mapping):
+                continue
+            if etype in ("ADDED", "MODIFIED"):
+                store[self._obj_key(payload)] = payload
+                applied += 1
+            elif etype == "DELETED":
+                store.pop(self._obj_key(payload), None)
+                applied += 1
+            # Every event advances the cursor, bookmarks included: that is
+            # their purpose, moving it past quiet stretches so it cannot
+            # expire.
+            rv = obj.metadata(payload).get("resourceVersion")
+            if rv:
+                self._track_rv[track] = str(rv)
+        return applied
+
+    def _sync_track(self, track: str, path: str) -> str | None:
+        """Sync one reactive list; returns the stream's error (or None).
+        An incremental watch when enabled, armed (a LIST recorded a
+        cursor) and supported by the transport; a full paginated re-list
+        otherwise, and after any failed watch, 410 Gone included, so a
+        watch-incapable or degraded server costs what a sync without
+        watch costs."""
+        stats = self.watch_stats[track]
+        watcher = getattr(self._transport, "watch", None)
+        if self._watch_enabled and watcher is not None and self._track_rv[track]:
+            try:
+                events = watcher(
+                    self._watch_path(path, self._track_rv[track]),
+                    self.WATCH_WINDOW_S + self._timeout_s,
+                )
+                applied = self._apply_watch_events(track, events)
+            except (_WatchExpired, ApiError):
+                pass  # re-list below
+            else:
+                stats["watches"] += 1
+                stats["events"] += applied
+                if applied:
+                    self._changed = True
+                return None
         try:
-            items = self._list_paginated(path)
+            items, resource_version = self._list_paginated(path)
         except ApiError as e:
-            return None, f"{track}: {e}"
+            return f"{track}: {e}"
+        self._track_store[track] = {self._obj_key(o): o for o in items}
+        self._track_rv[track] = resource_version
+        stats["relists"] += 1
         self._changed = True
-        return items, None
+        return None
 
     def _sync_reactive(self) -> None:
-        nodes, self._node_error = self._sync_track("nodes", NODES_PATH)
-        pods, self._pod_error = self._sync_track("pods", PODS_PATH)
-        if nodes is not None:
-            self._all_nodes = nodes
-        if pods is not None:
-            self._all_pods = pods
+        # The two tracks are independent (own stores, cursors and error
+        # streams) and run concurrently: with watch on, a quiet bounded
+        # watch blocks its whole server-side window, and serial polls
+        # would double every tick. One persistent worker carries the node
+        # track while the calling thread runs the pod track.
+        pool = self._reactive_pool
+        if pool is None:
+            pool = self._reactive_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="hl-torch-reactive"
+            )
+        try:
+            nodes_future = pool.submit(self._sync_track, "nodes", NODES_PATH)
+        except RuntimeError:
+            # close() shut the pool down between the read and the submit:
+            # run both tracks inline this once; the next sync recreates it.
+            nodes_future = None
+        if nodes_future is None:
+            self._node_error = self._sync_track("nodes", NODES_PATH)
+            self._pod_error = self._sync_track("pods", PODS_PATH)
+        else:
+            self._pod_error = self._sync_track("pods", PODS_PATH)
+            self._node_error = nodes_future.result()
+        if self._node_error is None:
+            self._all_nodes = list(self._track_store["nodes"].values())
+        if self._pod_error is None:
+            self._all_pods = list(self._track_store["pods"].values())
 
     # ------------------------------------------------------------------
     # Track 2: imperative per-provider fetches
@@ -356,6 +495,20 @@ class AcceleratorDataContext:
         self._sync_imperative(detect_changes=False)
         self._cached_snapshot = None
         return self.snapshot()
+
+    def close(self) -> None:
+        """Stop the node track's worker thread and join it. Idempotent; a
+        closed context can still sync (the worker is recreated lazily).
+        Call it when no sync is running: the join waits for one."""
+        pool, self._reactive_pool = self._reactive_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    def __enter__(self) -> AcceleratorDataContext:
+        return self
+
+    def __exit__(self, *_exc: Any) -> None:
+        self.close()
 
     def snapshot(self) -> ClusterSnapshot:
         """The current snapshot, built once per sync/refresh and cached:

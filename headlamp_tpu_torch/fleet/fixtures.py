@@ -222,11 +222,13 @@ def make_plugin_daemonset(
 
 def fleet_transport(fleet: dict[str, Any]) -> MockTransport:
     """MockTransport serving a fixture fleet on the URL surface the
-    dashboard lists: paginated node and pod lists and the TPU
-    device-plugin daemonsets."""
+    dashboard lists: the node and pod lists as watchable lists (limit /
+    continue pagination plus the watch-delta protocol; their feeds are
+    ``t.node_feed`` and ``t.pod_feed``, for scenarios that mutate the
+    fleet mid-run) and the TPU device-plugin daemonsets."""
     t = MockTransport()
-    t.add_list("/api/v1/nodes", fleet["nodes"])
-    t.add_list("/api/v1/pods", fleet["pods"])
+    t.node_feed = t.add_watchable_list("/api/v1/nodes", fleet["nodes"])
+    t.pod_feed = t.add_watchable_list("/api/v1/pods", fleet["pods"])
     t.add(
         "/apis/apps/v1/daemonsets?labelSelector=k8s-app%3Dtpu-device-plugin",
         {"kind": "List", "items": fleet.get("daemonsets", [])},

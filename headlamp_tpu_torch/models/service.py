@@ -8,6 +8,10 @@ pure — they render a ForecastView; this module owns the torch calls.
 A forecast is ``None`` only for the data conditions that say there is
 nothing to fit: no metrics snapshot, no chips, or no usable history. An
 exception from the fit, the kernel build or the kernel propagates.
+
+With a history store (``history.HistoryStore``), the incremental entry
+trains on the captured tier first once it holds one full training
+window, with no range query; the view's ``data_source`` says so.
 """
 
 from __future__ import annotations
@@ -65,7 +69,8 @@ class ForecastView:
     carried_from_generation: int | None = None
     #: Why a warm refinement self-demoted to a cold refit.
     warm_demotion_reason: str | None = None
-    #: What the fit trained on ("live-window" for a fresh range query).
+    #: What the fit trained on: "live-window" for a fresh range query,
+    #: "history" for the captured tier.
     data_source: str = "live-window"
 
     @property
@@ -185,9 +190,13 @@ def forecast_from_history_incremental(
     warm_steps: int = WARM_STEPS,
     init: Params | None = None,
     device: DeviceLike = None,
+    data_source: str = "live-window",
 ) -> tuple[ForecastView, WarmState | None]:
     """Warm-start variant of :func:`forecast_from_history`: refines the
-    carried :class:`WarmState` and returns the new carry with the view."""
+    carried :class:`WarmState` and returns the new carry with the view.
+    ``data_source`` names what ``history`` is ("history" for the
+    captured tier, "live-window" for a fresh range query) and is stamped
+    into the dispatch record the view mirrors and into the fit's span."""
     cfg = cfg or ForecastConfig()
     dev = resolve_device(device)
     t0 = time.perf_counter()
@@ -198,9 +207,10 @@ def forecast_from_history_incremental(
             np.asarray(history.series, dtype=np.float32), cfg,
             state=state, steps=steps, warm_steps=warm_steps, init=init, device=dev,
         )
+        dispatch = dispatch._replace(data_source=data_source)
         if fit_span is not None:
             fit_span.attrs["inference_path"] = dispatch.path
-            fit_span.attrs["data_source"] = dispatch.data_source
+            fit_span.attrs["data_source"] = data_source
     fit_ms = round((time.perf_counter() - t0) * 1000, 1)
     fit_mse = None if dispatch.fit_mse is None else float(dispatch.fit_mse)
     view = _summarize(history, cfg, preds, dispatch, fit_ms, fit_mse)
@@ -214,14 +224,34 @@ def compute_forecast_incremental(
     state: WarmState | None = None,
     clock: Callable[[], float] | None = None,
     device: DeviceLike = None,
+    history_store: Any = None,
 ) -> tuple[ForecastView | None, WarmState | None]:
-    """:func:`compute_forecast` with the warm-start carry on the
-    live-window path: returns ``(view, new_state)``. Without metrics,
-    chips or usable history it returns ``(None, state)``, so the carry
-    survives a thin scrape."""
+    """:func:`compute_forecast` with the warm-start carry: returns
+    ``(view, new_state)``. Without metrics, chips or usable history it
+    returns ``(None, state)``, so the carry survives a thin scrape.
+
+    With a ``history_store`` the captured tier is consulted first: once
+    it holds one full training window (``window + horizon`` points) of
+    aligned per-chip scrapes, the fit trains on it with no range query
+    and ``data_source="history"``. A thin store falls through to the
+    live range query. The fused rollup+forecast of the JAX service is
+    not part of the port, so both branches take the split path, as JAX
+    does whenever its bucket registry is not ready."""
     dev = resolve_device(device)
     if metrics is None or not metrics.chips:
         return None, state
+    if history_store is not None:
+        cfg = ForecastConfig()
+        # length >= window + horizon is the fit's floor (below it the
+        # incremental entry serves persistence): requiring it keeps
+        # "history" meaning "trained on history".
+        captured = history_store.utilization_history(
+            clock=clock or time.time, min_points=cfg.window + cfg.horizon
+        )
+        if captured is not None:
+            return forecast_from_history_incremental(
+                captured, cfg, state=state, device=dev, data_source="history"
+            )
     with span("forecast.history"):
         history = _fetch_history(transport, metrics, clock)
     if history is None:

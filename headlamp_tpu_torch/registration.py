@@ -4,13 +4,14 @@ column processors the host serves.
 The port's counterpart of ``headlamp_tpu/registration.py``, with the
 same ``SidebarEntry``, ``Route``, ``DetailSection``, ``ColumnsProcessor``
 and ``Registry`` types. :func:`register_plugin` registers, in the JAX
-order (`registration.py:130-186`), the TPU half of the surface: the
+order (`registration.py:130-191`), the TPU half of the surface: the
 Overview at ``/tpu``, the Fleet drill-down at ``/tpu/fleet``, Nodes,
-Workloads, Device Plugin, Topology and Metrics, the native nodes table at
+Workloads, Device Plugin, Topology, Metrics and Trends (``/tpu/trends``,
+painted from the host's history store), the native nodes table at
 ``/nodes``, the TPU Node and Pod detail sections (rendered by the host's
 ``/node/<name>`` and ``/pod/<namespace>/<name>`` views) and the TPU
-columns processor. ``/tpu/trends``, the debug pages and the Intel pages
-are not registered, so the host answers them with a 404 and never with a
+columns processor. The debug pages and the Intel pages are not
+registered, so the host answers them with a 404 and never with a
 stand-in page.
 """
 
@@ -27,6 +28,7 @@ from .pages import (
     overview_page,
     pods_page,
     topology_page,
+    trends_page,
     viewport_page,
 )
 from .pages.native import native_nodes_page
@@ -47,8 +49,9 @@ class Route:
     #: Page factory; hosts dispatch on ``kind``: 'snapshot' pages take
     #: (snap, now=…), 'metrics' takes the metrics snapshot and the
     #: forecast view, 'topology' takes (snap, metrics=…), 'viewport'
-    #: takes (snap, now=…, region=…) and 'native-nodes' takes
-    #: (snap, now=…, registry=…).
+    #: takes (snap, now=…, region=…), 'native-nodes' takes
+    #: (snap, now=…, registry=…) and 'trends' takes the history store's
+    #: trend view and no snapshot.
     component: Callable[..., Any]
     kind: str = "snapshot"
     #: True for routes whose component accepts ``page=``/``query=`` —
@@ -113,6 +116,7 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             ),
             SidebarEntry("tpu-topology", "Topology", "/tpu/topology", parent=SIDEBAR_ROOT),
             SidebarEntry("tpu-metrics", "Metrics", "/tpu/metrics", parent=SIDEBAR_ROOT),
+            SidebarEntry("tpu-trends", "Trends", "/tpu/trends", parent=SIDEBAR_ROOT),
             # The host's own native surface: the nodes table the column
             # processors extend.
             SidebarEntry("cluster", "Cluster", "/nodes", parent=None),
@@ -130,6 +134,10 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             Route("/tpu/deviceplugins", "tpu-deviceplugins", device_plugins_page),
             Route("/tpu/topology", "tpu-topology", topology_page, kind="topology"),
             Route("/tpu/metrics", "tpu-metrics", metrics_page, kind="metrics"),
+            # The history tier's trend surface: its kind dispatch hands it
+            # the store's windowed view instead of a cluster snapshot, so
+            # it paints while the sync is the thing under investigation.
+            Route("/tpu/trends", "tpu-trends", trends_page, kind="trends"),
             Route(
                 "/nodes", "cluster-nodes", native_nodes_page, kind="native-nodes", paged=True
             ),

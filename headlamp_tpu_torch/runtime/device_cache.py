@@ -56,7 +56,10 @@ class DeviceFleetCache:
     Thread-safe for the server's access pattern. The lock guards only
     dict bookkeeping; encode + upload happen outside it, so two threads
     racing the same cold version upload twice rather than serializing
-    every warm hit behind an upload. Failures propagate."""
+    every warm hit behind an upload. An upload publishes its entry only
+    over an older version (or none): a request thread finishing the
+    upload of a snapshot it read before the background loop warmed a
+    newer one must not replace the newer entry. Failures propagate."""
 
     def __init__(self, device: torch.device | str = "cpu") -> None:
         self.device = torch.device(device)
@@ -92,7 +95,9 @@ class DeviceFleetCache:
             fleet = _to_device(encode_fleet(view.nodes, view.pods), self.device)
         with self._lock:
             self.uploads += 1
-            self._entries[view.provider.name] = (view.version, fleet)
+            held = self._entries.get(view.provider.name)
+            if held is None or held[0] < view.version:
+                self._entries[view.provider.name] = (view.version, fleet)
         return fleet
 
     def _current(self, view: FleetView) -> FleetArrays | None:
@@ -117,9 +122,10 @@ class DeviceFleetCache:
         return fleet if fleet is not None else self._upload(view)
 
     def warm(self, view: FleetView) -> bool:
-        """Encode + upload ``view`` now so the next request hits warm.
-        Returns True when an upload happened, False when the entry was
-        already current or the view is unversioned."""
+        """Encode + upload ``view`` now so the next request hits warm: the
+        background sync's hook, run off the request path for each new
+        snapshot version. Returns True when an upload happened, False
+        when the entry was already current or the view is unversioned."""
         if view.version is None or self._current(view) is not None:
             return False
         self._upload(view)

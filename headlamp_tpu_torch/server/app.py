@@ -18,33 +18,46 @@ over stdlib ``http.server``:
   native views with the registered TPU columns and detail sections (an
   unknown node or pod is a 404);
 - ``GET /tpu/metrics``        the metrics page with its utilization
-  forecast, fit on the app's device and served by the fused CUDA kernel
-  ``forecast_mlp_forward`` on a card (its plain version on the CPU);
-- ``GET /refresh?back=<url>`` re-run the snapshot's imperative track,
-  invalidate the metrics and forecast caches (and with
-  ``recalibrate=1`` the rollup calibration and the device columns), then
-  redirect to a registered route or a node or pod detail path;
+  forecast, fit on the app's device (on the captured history once the
+  history store holds a training window, else on a range query) and
+  served by the fused CUDA kernel ``forecast_mlp_forward`` on a card (its
+  plain version on the CPU);
+- ``GET /tpu/trends``         the history store's series (``?window=``,
+  ``?metric=`` with ``?limit=``/``?cursor=``), their statistics computed
+  in one program on the app's device; it reads no snapshot;
+- ``GET /refresh?back=<url>`` wake the background sync (or, without
+  one, re-run the snapshot's imperative track), invalidate the metrics
+  and forecast caches (and with ``recalibrate=1`` the rollup calibration
+  and the device columns), then redirect to a registered route or a node
+  or pod detail path;
 - ``GET /healthz``            liveness and the runtime counters, as JSON;
 - ``GET /metricsz``           Prometheus text self-exposition;
 - ``GET /debug/traces``       recent request traces, as JSON.
 
-Every other path is a 404. Every page reads a cluster snapshot from the
-app's ``AcceleratorDataContext``, synced inline at most once per
-``min_sync_interval_s`` and shared otherwise (the JAX host's inline
-branch, `app.py:755-773`). The metrics fetch and the forecast sit behind
-two stale-while-revalidate refreshers: the first request for a fleet
-fits cold, and after the TTL a stale page is served at once while one
+Every other path is a 404. Every snapshot page reads a cluster snapshot
+from the app's ``AcceleratorDataContext``. Without background sync it is
+synced inline at most once per ``min_sync_interval_s`` and shared
+otherwise (the JAX host's inline branch, `app.py:755-773`). With
+:meth:`DashboardApp.start_background_sync` a thread syncs with
+list+watch: a quiet tick keeps the snapshot and its version, a changed
+tick publishes a new one and uploads its fleet columns to the app's
+device off the request path, and pages read the published snapshot
+without the sync lock. Every sync and every metrics scrape lands in the
+app's history store. The metrics fetch and the forecast sit behind two
+stale-while-revalidate refreshers: the first request for a fleet fits
+cold, and after the TTL a stale page is served at once while one
 background refit warm-starts from the process-wide carry
 (``runtime.device_cache.warm_carries``).
 
-Background sync, the gateway, push, replication, workers, SLOs, the
-fragment cache, the history store, the incident timeline and the pages
-not listed above are not part of this host; ``/healthz`` leaves out the
-keys of the JAX host's that describe them.
+The gateway, push, replication, workers, SLOs, the fragment cache, the
+incident timeline and the pages not listed above are not part of this
+host; ``/healthz`` leaves out the keys of the JAX host's that describe
+them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import html
 import json
 import re
@@ -60,6 +73,7 @@ import torch
 from ..analytics import stats as rollup_stats
 from ..context.accelerator_context import AcceleratorDataContext, ClusterSnapshot
 from ..device import DeviceLike, resolve_device
+from ..history import HistoryStore, set_active_store
 from ..metrics.client import TpuMetricsSnapshot, fetch_tpu_metrics
 from ..models.fused_forward import LAUNCHES, kernel_build_info
 from ..models.service import ForecastView, compute_forecast_incremental
@@ -126,6 +140,17 @@ class DashboardApp:
     #: topology heatmap: a minute-old tint beats none, and the page must
     #: never pay the Prometheus chain for it.
     METRICS_PEEK_MAX_AGE_S = 60.0
+    #: Consecutive failing syncs at which /healthz flips ``ok`` to false:
+    #: one blip must not restart a pod, a persistent failure must not
+    #: hide behind a hard-coded true.
+    HEALTH_FAILURE_THRESHOLD = 3
+    #: With background sync live, a snapshot older than this many
+    #: intervals means the loop is wedged (thread died, sync hanging).
+    HEALTH_MAX_STALE_INTERVALS = 3.0
+    #: Staleness floor for the wedged check: a tick spans the two bounded
+    #: watch windows plus the imperative track, so at small intervals
+    #: ``intervals × interval`` alone would flap on a healthy cluster.
+    HEALTH_MIN_STALE_S = 30.0
 
     def __init__(
         self,
@@ -145,6 +170,14 @@ class DashboardApp:
         #: The cluster snapshot every page reads; it owns the snapshot's
         #: device-resident fleet columns (``self._ctx.fleet_cache``).
         self._ctx = AcceleratorDataContext(transport, device=self._device, clock=clock)
+        #: The card the background loop works on, fixed here: its thread
+        #: starts with no CUDA context and must not land on another card.
+        self._cuda_index: int | None = None
+        if self._device.type == "cuda":
+            self._cuda_index = (
+                self._device.index if self._device.index is not None
+                else torch.cuda.current_device()
+            )
         self._min_sync = min_sync_interval_s
         # -inf, not 0.0: the monotonic clock's epoch is arbitrary, and 0.0
         # could suppress the first sync for up to min_sync seconds.
@@ -152,9 +185,36 @@ class DashboardApp:
         #: Serializes syncs, refreshes and the check-then-act on
         #: _last_sync; renders of a built snapshot stay lock-free.
         self._sync_lock = threading.Lock()
-        #: The last snapshot a page read, for /healthz (which never
-        #: syncs and never takes the sync lock).
+        #: The last published snapshot: every page read and every
+        #: background tick publishes it (one reference assignment), and
+        #: /healthz and the background branch of the request path read it
+        #: without the sync lock.
         self._last_snapshot: ClusterSnapshot | None = None
+        #: Monotonic stamp of the last completed sync, for /healthz.
+        self._last_snapshot_mono: float | None = None
+        #: The background loop (see start_background_sync): its stop
+        #: handle, wake event, interval and threads (joined by close).
+        self._background_stop: threading.Event | None = None
+        self._background_wake = threading.Event()
+        self._background_interval: float | None = None
+        self._background_threads: list[threading.Thread] = []
+        #: Serializes loop restarts against a stop handle's set(): the
+        #: stale-handle guard is a check-then-act. Reentrant, because a
+        #: restart sets the old handle while holding it.
+        self._bg_lock = threading.RLock()
+        #: Consecutive syncs that raised or built an errors-bearing
+        #: snapshot, and the last such error.
+        self._sync_failures = 0
+        self._last_sync_error: str | None = None
+        #: The background loop's counters (under self._lock): ticks,
+        #: warm uploads, warm errors. A failed warm holds /healthz ok
+        #: false until a later warm succeeds.
+        self._background_counters = {"ticks": 0, "warms": 0, "warm_errors": 0}
+        self._last_warm_error: str | None = None
+        self._warm_failing = False
+        #: The last background tick's trace (span tree), never ringed: a
+        #: quiet cluster's ticks would evict every page trace.
+        self.last_tick_trace: dict[str, Any] | None = None
         self._metrics_refresher = Refresher(
             "metrics", ttl_s=self.METRICS_TTL_S, grace_s=self.METRICS_GRACE_S,
             monotonic=monotonic,
@@ -163,6 +223,14 @@ class DashboardApp:
             "forecast", ttl_s=self.FORECAST_TTL_S, grace_s=self.FORECAST_GRACE_S,
             monotonic=monotonic,
         )
+        #: The history tier, one per app on its monotonic clock; its
+        #: trend statistics run on the app's device. The module-level
+        #: active store only feeds the /metricsz gauges (latest app wins).
+        self.history = HistoryStore(monotonic=monotonic, device=self._device)
+        set_active_store(self.history)
+        # Every scrape the metrics refresher stores (background refits
+        # and cold fills) lands in the history store.
+        self._metrics_refresher.on_store = self._capture_metrics_store
         #: Warm-start carries per forecast key, for the whole process: a
         #: rebuilt app warm-starts from what the process already learned.
         self._warm_forecast_states = warm_carries
@@ -190,6 +258,10 @@ class DashboardApp:
             "Requests served, by route template and status code.",
             labels=("route", "status"),
         )
+        self._sync_fail_total = metrics_registry.counter(
+            "headlamp_tpu_torch_sync_failures_total",
+            "Cluster syncs that raised or built an errors-bearing snapshot.",
+        )
 
     @property
     def device(self) -> torch.device:
@@ -204,22 +276,185 @@ class DashboardApp:
     # The cluster snapshot
     # ------------------------------------------------------------------
 
-    def _synced_snapshot(self) -> ClusterSnapshot:
-        """The snapshot for a page: one inline sync under the sync lock
-        when ``min_sync_interval_s`` has passed on the monotonic clock
-        since the last, else the current snapshot (coalesced)."""
-        with span("sync.snapshot"), self._sync_lock:
-            now = self._mono()
-            if now - self._last_sync >= self._min_sync:
-                self._ctx.sync()
-                self._last_sync = now
-                annotate(source="inline-sync")
+    def start_background_sync(self, interval_s: float | None = None) -> threading.Event:
+        """Sync the cluster on a thread of its own every ``interval_s``
+        seconds (default ``max(min_sync_interval_s, 1)``), with
+        list+watch: page views read the last published snapshot instead
+        of syncing inline. A changed tick's new snapshot version has its
+        TPU fleet columns uploaded to the app's device off the request
+        path; a quiet tick keeps the version and uploads nothing. Returns
+        the stop handle; :meth:`close` stops and joins the loop. A sync
+        that raises is counted and retried on the next tick."""
+        app = self
+
+        class _StopEvent(threading.Event):
+            """Setting stop also wakes the loop, so it exits at once, and
+            (only while this is still the active loop's handle) turns
+            watch back off: the inline sync of the request path must
+            cost plain LISTs, not watch windows. A stale handle's set()
+            must not disable a newer loop's watch."""
+
+            wake: threading.Event
+
+            def set(self) -> None:  # noqa: A003 (threading.Event API)
+                super().set()
+                with app._bg_lock:
+                    if app._background_stop is self:
+                        app._ctx.enable_watch(False)
+                self.wake.set()
+
+        with self._bg_lock:
+            # A restart replaces a live loop: stop it first so two loops
+            # never share the context, and give the new loop its own wake
+            # event, so an orphaned loop cannot consume a /refresh wake.
+            if self._background_live():
+                self._background_stop.set()
+            wake = threading.Event()
+            self._background_wake = wake
+            stop = _StopEvent()
+            stop.wake = wake
+            interval = interval_s if interval_s is not None else max(self._min_sync, 1.0)
+            self._background_interval = interval
+            self._background_stop = stop
+            # Enabled once this handle is the active one, so a stale set()
+            # re-checking under the same lock cannot undo it.
+            self._ctx.enable_watch()
+            self._background_threads = [t for t in self._background_threads if t.is_alive()]
+
+        def loop() -> None:
+            on_card = (
+                torch.cuda.device(self._cuda_index) if self._cuda_index is not None
+                else contextlib.nullcontext()
+            )
+            with on_card:
+                self._background_tick()  # hydrate at once
+                while True:
+                    wake.wait(interval)
+                    wake.clear()
+                    if stop.is_set():
+                        return
+                    self._background_tick()
+
+        thread = threading.Thread(target=loop, name="hl-torch-sync", daemon=True)
+        with self._bg_lock:
+            self._background_threads.append(thread)
+        thread.start()
+        return stop
+
+    def _background_tick(self) -> None:
+        """One background sync: publish the snapshot, record it, warm its
+        fleet columns. Runs under a trace of its own that is kept as
+        ``last_tick_trace``, not in the ring."""
+        status = 200
+        with trace_request("/sync", wall=self._clock) as trace:
+            try:
+                with span("sync.snapshot", source="background"), self._sync_lock:
+                    self._ctx.sync()
+                    now = self._mono()
+                    self._last_sync = now
+                    snap = self._ctx.snapshot()
+                    self._last_snapshot = snap
+                    self._last_snapshot_mono = now
+                    annotate(nodes=len(snap.all_nodes or []))
+            except Exception as e:  # noqa: BLE001 — the loop must keep ticking
+                status = 500
+                self._record_sync(None, error=e)
             else:
-                annotate(source="coalesced")
-            snap = self._ctx.snapshot()
-            self._last_snapshot = snap
-            annotate(nodes=len(snap.all_nodes or []))
-            return snap
+                self._record_sync(snap)
+                self._warm_device_cache(snap)
+            with self._lock:
+                self._background_counters["ticks"] += 1
+        if trace is not None:
+            trace.finish(route="/sync", status=status, device_gets=0)
+            self.last_tick_trace = trace.to_dict()
+
+    def _warm_device_cache(self, snap: ClusterSnapshot) -> None:
+        """Upload the TPU fleet's columns to the app's device as soon as a
+        new snapshot lands, so the first request against it is a cache
+        hit. Gated on the rollup floor: below it the policy serves the
+        Python rollup, which never reads the columns. An error is counted
+        and flips /healthz ``ok`` to false; the next request runs the
+        same upload and answers 500 naming it."""
+        state = snap.providers.get("tpu")
+        if state is None or state.view.version is None:
+            return
+        if len(state.view.nodes) < rollup_stats.DEVICE_ROLLUP_MIN_NODES:
+            return
+        try:
+            uploaded = self._ctx.fleet_cache.warm(state.view)
+        except Exception as e:  # noqa: BLE001 — recorded, and the request path re-raises it
+            with self._lock:
+                self._background_counters["warm_errors"] += 1
+                self._last_warm_error = f"{type(e).__name__}: {e}"
+                self._warm_failing = True
+            return
+        with self._lock:
+            self._background_counters["warms"] += int(uploaded)
+            self._warm_failing = False
+
+    def _capture_metrics_store(self, key: Any, value: Any) -> None:
+        """Refresher ``on_store`` hook: record each fetched metrics
+        snapshot into the history tier. A cached failure (None) appends
+        nothing: the gap is the record of the outage."""
+        if value is not None and getattr(value, "chips", None):
+            self.history.record_scrape(value)
+
+    def _record_sync(self, snap: ClusterSnapshot | None, error: Exception | None = None) -> None:
+        """Capture each completed sync's generation, node count and error
+        count into the history tier, and count consecutive failing syncs
+        for /healthz: a sync fails when it raised (``snap`` None) or its
+        snapshot carries reactive-track errors (transport failures never
+        raise out of ``sync()``; they degrade into the error streams)."""
+        if snap is not None:
+            generation = next(
+                (int(s.view.version) for s in snap.providers.values() if s.view.version), 0
+            )
+            self.history.record_sync(
+                generation=generation, nodes=len(snap.all_nodes or []), errors=len(snap.errors)
+            )
+        if snap is not None and not snap.errors:
+            self._sync_failures = 0
+            return
+        self._sync_failures += 1
+        self._last_sync_error = (
+            f"{type(error).__name__}: {error}" if error is not None else snap.error
+        )
+        self._sync_fail_total.inc()
+
+    def _background_live(self) -> bool:
+        stop = self._background_stop
+        return stop is not None and not stop.is_set()
+
+    def _synced_snapshot(self) -> ClusterSnapshot:
+        """The snapshot for a page. With the background loop live: the
+        published snapshot, read without the sync lock (a tick holds it
+        across its watch windows). Otherwise one inline sync under the
+        sync lock when ``min_sync_interval_s`` has passed on the
+        monotonic clock since the last, else the current snapshot
+        (coalesced)."""
+        with span("sync.snapshot"):
+            if self._background_live():
+                snap = self._last_snapshot
+                if snap is not None:
+                    annotate(source="background", nodes=len(snap.all_nodes or []))
+                    return snap
+                # Not hydrated yet: build one under the lock (it races the
+                # loop's first tick harmlessly; the lock serializes them).
+            with self._sync_lock:
+                now = self._mono()
+                if not self._background_live() and now - self._last_sync >= self._min_sync:
+                    self._ctx.sync()
+                    self._last_sync = now
+                    snap = self._ctx.snapshot()
+                    self._record_sync(snap)
+                    self._last_snapshot_mono = now
+                    annotate(source="inline-sync")
+                else:
+                    snap = self._ctx.snapshot()
+                    annotate(source="coalesced")
+                self._last_snapshot = snap
+                annotate(nodes=len(snap.all_nodes or []))
+                return snap
 
     # ------------------------------------------------------------------
     # Metrics and forecast, behind the refreshers
@@ -292,8 +527,11 @@ class DashboardApp:
         key = self._metrics_key(metrics)
         state = self._warm_forecast_states.take(key)
         try:
+            # Once the history store holds a full training window, the
+            # fit trains on captured history, with no range query.
             view, new_state = compute_forecast_incremental(
-                self._transport, metrics, state=state, clock=self._clock, device=self._device
+                self._transport, metrics, state=state, clock=self._clock, device=self._device,
+                history_store=self.history,
             )
         except BaseException:
             if state is not None:
@@ -365,18 +603,7 @@ class DashboardApp:
         route_path = parsed.path.rstrip("/") or "/tpu"
 
         if route_path == "/healthz":
-            # Never syncs and never waits on the sync lock: it reads the
-            # last snapshot a page read.
-            snap = self._last_snapshot
-            health: dict[str, Any] = {"ok": True, "loading": snap is None or snap.loading}
-            if snap is not None:
-                health.update(
-                    errors=snap.errors,
-                    fetched_at=snap.fetched_at,
-                    nodes=len(snap.all_nodes or []),
-                )
-            health.update(analytics=self._analytics_health(), runtime=self._runtime_health())
-            return 200, "application/json", json.dumps(health)
+            return 200, "application/json", json.dumps(self._health())
         if route_path == "/metricsz":
             return 200, TEXT_CONTENT_TYPE, metrics_registry.render()
         if route_path == "/debug/traces":
@@ -384,12 +611,17 @@ class DashboardApp:
                 {"capacity": trace_ring.capacity, "traces": trace_ring.snapshot()}
             )
         if route_path == "/refresh":
-            # Re-run the imperative track inline, as the reference's
-            # refreshKey effect does, then bump the epoch: every cached
-            # metrics and forecast entry is stale from now on, and the
-            # redirect never waits behind a fit.
-            with self._sync_lock:
-                self._ctx.refresh()
+            # With the background loop live, waking it covers both tracks
+            # and the redirect never waits on the sync lock the loop holds
+            # across its ticks. Without it, re-run the imperative track
+            # inline, as the reference's refreshKey effect does. Then bump
+            # the epoch: every cached metrics and forecast entry is stale
+            # from now on, and the redirect never waits behind a fit.
+            if self._background_live():
+                self._background_wake.set()
+            else:
+                with self._sync_lock:
+                    self._ctx.refresh()
             with self._lock:
                 self._cache_epoch += 1
             query = parse_qs(parsed.query)
@@ -429,6 +661,8 @@ class DashboardApp:
         route = self._registry.route_for(route_path)
         if route is None:
             return 404, "text/html", self._page_html("Not Found", "<p>No such page.</p>")
+        if route.kind == "trends":
+            return self._trends_response(route, parse_qs(parsed.query), route_path)
         snap = self._synced_snapshot()
         now = self._clock()
         params = parse_qs(parsed.query)
@@ -475,6 +709,38 @@ class DashboardApp:
             body = self._page_html(route.name, render_html(el), route_path)
         return 200, "text/html", body
 
+    def _trends_response(
+        self, route: Any, params: dict[str, list[str]], route_path: str
+    ) -> tuple[int, str, str]:
+        """``/tpu/trends``: a pure function of the history store's view,
+        so it reads no snapshot and never syncs. ``?window=`` picks the
+        lookback (the store clamps it to [1 s, retention]); ``?metric=``
+        switches to the browse mode, windowed by ``?limit=`` and
+        ``?cursor=``."""
+        try:
+            window_s = float(params.get("window", ["3600"])[0])
+        except ValueError:
+            window_s = 3600.0
+        series_limit: int | None = None
+        if "limit" in params:
+            try:
+                series_limit = int(params["limit"][0])
+            except ValueError:
+                series_limit = None
+        cursor = params.get("cursor", [None])[0]
+        with span("page.data", kind=route.kind):
+            view = self.history.trend_view(
+                window_s=window_s,
+                metric=params.get("metric", [""])[0][:253],
+                series_cursor=cursor[:512] if cursor else None,
+                series_limit=series_limit,
+            )
+        with span("page.component", kind=route.kind):
+            el = route.component(view)
+        with span("render.html"):
+            body = self._page_html(route.name, render_html(el), route_path)
+        return 200, "text/html", body
+
     def _detail_response(self, el: Element, title: str, route_path: str) -> tuple[int, str, str]:
         """A native detail view's response: 404 when the view is the
         not-found page, else 200."""
@@ -496,6 +762,42 @@ class DashboardApp:
             f"<body><nav class='hl-nav'>{nav}{refresh}</nav>"
             f"<main>{body}</main></body></html>"
         )
+
+    def _health(self) -> dict[str, Any]:
+        """The /healthz body. Never syncs and never waits on the sync
+        lock: it reads the last published snapshot. ``ok`` is false after
+        ``HEALTH_FAILURE_THRESHOLD`` failing syncs in a row, while the
+        background loop's snapshot is older than its wedged limit, or
+        while the last background warm failed. Ages run on the injected
+        monotonic clock."""
+        snap = self._last_snapshot
+        failures = self._sync_failures
+        ok = failures < self.HEALTH_FAILURE_THRESHOLD and not self._warm_failing
+        background = self._background_live()
+        health: dict[str, Any] = {"ok": ok, "loading": snap is None or snap.loading}
+        if snap is not None:
+            stamp = self._last_snapshot_mono
+            age = max(self._mono() - stamp, 0.0) if stamp is not None else 0.0
+            interval = self._background_interval
+            wedged = background and interval is not None and age > max(
+                self.HEALTH_MAX_STALE_INTERVALS * interval, self.HEALTH_MIN_STALE_S
+            )
+            health.update(
+                ok=ok and not wedged,
+                errors=snap.errors,
+                fetched_at=snap.fetched_at,
+                last_sync_age_s=round(age, 3),
+                nodes=len(snap.all_nodes or []),
+            )
+        else:
+            health["errors"] = []
+        health.update(
+            consecutive_sync_failures=failures,
+            background_sync=background,
+            analytics=self._analytics_health(),
+            runtime=self._runtime_health(),
+        )
+        return health
 
     def _analytics_health(self) -> dict[str, Any]:
         """The rollup calibration for /healthz: the measured timings,
@@ -522,10 +824,21 @@ class DashboardApp:
     def _runtime_health(self) -> dict[str, Any]:
         """The /healthz runtime block: device-to-host copies paid, the
         device-resident fleet columns, the warm carries, both
-        refreshers, and the device with its kernel."""
+        refreshers, the context's watch counters, the background loop,
+        the history store, and the device with its kernel."""
+        with self._lock:
+            background = {
+                **self._background_counters,
+                "interval_s": self._background_interval,
+                "last_warm_error": self._last_warm_error,
+                "last_sync_error": self._last_sync_error,
+            }
         return {
             "transfer": transfer_stats.snapshot(),
             "fleet_cache": self._ctx.fleet_cache.snapshot(),
+            "watch": {track: dict(c) for track, c in self._ctx.watch_stats.items()},
+            "background": background,
+            "history": self.history.snapshot(),
             "warm_carries": {
                 **self._warm_forecast_states.counters(),
                 "entries": len(self._warm_forecast_states),
@@ -565,14 +878,26 @@ class DashboardApp:
         return serve(self, host, port)
 
     def close(self, timeout_s: float = 30.0) -> None:
-        """Wait for every refit in flight and join its thread, drop the
-        process's warm carries and the snapshot's device columns, and
-        wait for the card's queued work, so nothing this app started is
-        still running. Raises TimeoutError if a refit outlives
-        ``timeout_s``."""
+        """Stop the background loop and join its thread, wait for every
+        refit in flight and join its thread, join the context's reactive
+        worker, then drop the process's warm carries and the snapshot's
+        device columns and wait for the card's queued work, so nothing
+        this app started is still running (the loop is joined first, so
+        a late warm cannot republish columns after the drop). Raises
+        TimeoutError if a thread outlives ``timeout_s``."""
+        with self._bg_lock:
+            stop = self._background_stop
+            threads = list(self._background_threads)
+        if stop is not None:
+            stop.set()
+        for thread in threads:
+            thread.join(timeout_s)
+            if thread.is_alive():
+                raise TimeoutError(f"the background sync outlived {timeout_s} s")
         for r in (self._metrics_refresher, self._forecast_refresher):
             if not r.drain(timeout_s):
                 raise TimeoutError(f"the {r.name} refresher's refits outlived {timeout_s} s")
+        self._ctx.close()
         self._warm_forecast_states.invalidate()
         self._ctx.fleet_cache.invalidate()
         if self._device.type == "cuda":

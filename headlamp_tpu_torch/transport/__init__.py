@@ -2,6 +2,6 @@
 one JSON-over-HTTP request function behind which all cluster access
 happens, injectable with :class:`MockTransport`."""
 
-from .api_proxy import DEFAULT_TIMEOUT_S, ApiError, MockTransport, Transport
+from .api_proxy import DEFAULT_TIMEOUT_S, ApiError, MockTransport, Transport, WatchFeed
 
-__all__ = ["DEFAULT_TIMEOUT_S", "ApiError", "MockTransport", "Transport"]
+__all__ = ["DEFAULT_TIMEOUT_S", "ApiError", "MockTransport", "Transport", "WatchFeed"]

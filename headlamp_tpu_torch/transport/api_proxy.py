@@ -2,14 +2,20 @@
 
 Every cluster call goes through one function, ``request(path) -> parsed
 JSON``, as in the reference plugin. This module carries the slice of the
-JAX package's transport that the metrics page needs:
+JAX package's transport that the dashboard needs:
 
-- :class:`Transport` — the protocol (``request(path, timeout_s)``).
+- :class:`Transport` — the protocol (``request(path, timeout_s)``; a
+  transport that can also ``watch(path, timeout_s)`` serves the
+  list+watch protocol).
+- :class:`WatchFeed` — mock apiserver state for one watchable list:
+  paginated LISTs stamped with a ``resourceVersion``, watch deltas since
+  a cursor, 410 Gone after :meth:`WatchFeed.compact`.
 - :class:`MockTransport` — the test and demo double: path -> canned
-  response / exception / callable, with call recording.
+  response / exception / callable, with call recording, failure
+  overrides and watchable lists.
 
-The real HTTP transport (``KubeTransport``), its connection pool and the
-watch protocol are not part of this package yet.
+The real HTTP transport (``KubeTransport``) and its connection pool are
+not part of this package yet.
 """
 
 from __future__ import annotations
@@ -40,6 +46,98 @@ class Transport(Protocol):
         ...
 
 
+class WatchFeed:
+    """Mock apiserver state for one watchable list: current objects plus
+    a bounded event log keyed by resourceVersion. Tests and the demo
+    mutate it with :meth:`push`; the paginated LIST response and the
+    watch-delta response both derive from it, so a context driven
+    against it sees the list+watch protocol contract (including 410
+    Gone after :meth:`compact`)."""
+
+    def __init__(self, items: list[Any], resource_version: int = 1000) -> None:
+        self._items: dict[str, Any] = {}
+        for item in items:
+            self._items[self._uid(item)] = item
+        self.resource_version = int(resource_version)
+        #: (resource_version, event) pairs, oldest first.
+        self.events: list[tuple[int, dict]] = []
+        #: Oldest resourceVersion still replayable; watches asking for
+        #: anything older get the apiserver's 410 Gone ERROR event.
+        self.oldest_retained = int(resource_version)
+
+    @staticmethod
+    def _uid(item: Any) -> str:
+        metadata = item.get("metadata", {}) if isinstance(item, Mapping) else {}
+        return str(metadata.get("uid") or metadata.get("name") or id(item))
+
+    def push(self, event_type: str, obj: Any) -> None:
+        """Record an ADDED/MODIFIED/DELETED/BOOKMARK event; object events
+        also apply to the current state (BOOKMARK only advances the
+        resourceVersion, as the apiserver's does)."""
+        self.resource_version += 1
+        if event_type == "DELETED":
+            self._items.pop(self._uid(obj), None)
+        elif event_type != "BOOKMARK":
+            self._items[self._uid(obj)] = obj
+        self.events.append((self.resource_version, {"type": event_type, "object": obj}))
+
+    def compact(self) -> None:
+        """Forget the event log: later watches from any older
+        resourceVersion get 410 Gone, forcing the client's re-list (the
+        apiserver does this when its watch cache window expires)."""
+        self.oldest_retained = self.resource_version
+        self.events.clear()
+
+    def list_response(self, req_path: str) -> Any:
+        """Kubernetes LIST honoring ``limit``/``continue`` pagination,
+        stamped with the feed's current resourceVersion."""
+        items = list(self._items.values())
+        query = urllib.parse.parse_qs(urllib.parse.urlparse(req_path).query)
+        limit = int(query.get("limit", ["0"])[0] or 0)
+        metadata: dict[str, Any] = {"resourceVersion": str(self.resource_version)}
+        if not limit:
+            return {"kind": "List", "metadata": metadata, "items": items}
+        offset = int(query.get("continue", ["0"])[0] or 0)
+        page = items[offset : offset + limit]
+        next_offset = offset + limit
+        if next_offset < len(items):
+            metadata["continue"] = str(next_offset)
+        return {"kind": "List", "metadata": metadata, "items": page}
+
+    def events_since(self, resource_version: str) -> list[Any]:
+        """The watch response for ``resourceVersion=N``: every event
+        newer than N, or a single 410 ERROR event when N predates the
+        retained window."""
+        try:
+            rv = int(resource_version)
+        except (TypeError, ValueError):
+            rv = 0
+        if rv < self.oldest_retained:
+            return [
+                {
+                    "type": "ERROR",
+                    "object": {
+                        "kind": "Status",
+                        "code": 410,
+                        "reason": "Expired",
+                        "message": f"too old resource version: {rv}",
+                    },
+                }
+            ]
+        out: list[Any] = []
+        for ev_rv, event in self.events:
+            if ev_rv <= rv:
+                continue
+            # Stamp each event object's resourceVersion as the apiserver
+            # does: clients advance their cursor from it.
+            obj = dict(event["object"]) if isinstance(event["object"], Mapping) else {}
+            metadata = dict(obj.get("metadata", {}))
+            metadata["resourceVersion"] = str(ev_rv)
+            obj["metadata"] = metadata
+            out.append({"type": event["type"], "object": obj})
+        return out
+
+
 class MockTransport:
     """Canned-response transport for tests and the demo.
 
@@ -58,13 +156,35 @@ class MockTransport:
         self.routes: dict[str, Any] = dict(routes or {})
         self._prefix_routes: list[tuple[str, Any]] = []
         self._list_routes: dict[str, Any] = {}
+        self._overrides: list[tuple[str, Any]] = []
+        self._watch_feeds: dict[str, WatchFeed] = {}
         self.calls: list[str] = []
+        self.watch_calls: list[str] = []
 
     def add(self, path: str, response: Any) -> None:
         self.routes[path] = response
 
     def add_prefix(self, prefix: str, response: Any) -> None:
         self._prefix_routes.append((prefix, response))
+
+    def add_override(self, prefix: str, response: Any) -> None:
+        """Route checked before everything else (last registered wins):
+        the hook for breaking an endpoint whatever its pagination. A
+        query-less prefix matches the endpoint itself and its
+        limit/continue/fieldSelector forms, but not selector sub-queries
+        (``?labelSelector=``), which are fallback paths with routes of
+        their own; break those with an explicit ``?labelSelector``
+        prefix. Watch requests match any override by plain prefix."""
+        self._overrides.append((prefix, response))
+
+    def _override_matches(self, path: str, prefix: str) -> bool:
+        if "?" in prefix:
+            return path.startswith(prefix)
+        parsed = urllib.parse.urlparse(path)
+        if not parsed.path.startswith(prefix):
+            return False
+        params = set(urllib.parse.parse_qs(parsed.query))
+        return not (params - self._LIST_PARAMS)
 
     def add_list(self, path: str, items: list[Any]) -> None:
         """Serve a Kubernetes list at ``path`` honoring ``limit=`` /
@@ -87,6 +207,37 @@ class MockTransport:
 
         self._list_routes[path] = respond
 
+    def add_watchable_list(
+        self, path: str, items: list[Any], resource_version: int = 1000
+    ) -> WatchFeed:
+        """Serve ``path`` as a live list+watch source: LIST requests get
+        paginated responses stamped with the feed's resourceVersion,
+        watch requests get the deltas pushed since the requested cursor.
+        Returns the :class:`WatchFeed`; mutate it with ``push`` /
+        ``compact`` to drive a scenario."""
+        feed = WatchFeed(items, resource_version)
+        self._list_routes[path] = feed.list_response
+        self._watch_feeds[path] = feed
+        return feed
+
+    def watch(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> list[Any]:
+        """Watch requests route like any other (overrides and exact
+        routes can inject failures), then fall through to the endpoint's
+        :class:`WatchFeed`. No feed: 404, which a caller treats as
+        "watch unsupported, re-list"."""
+        self.watch_calls.append(path)
+        for prefix, response in reversed(self._overrides):
+            if path.startswith(prefix):
+                return self._resolve(path, response)
+        if path in self.routes:
+            return self._resolve(path, self.routes[path])
+        parsed = urllib.parse.urlparse(path)
+        feed = self._watch_feeds.get(parsed.path)
+        if feed is not None:
+            query = urllib.parse.parse_qs(parsed.query)
+            return feed.events_since(query.get("resourceVersion", ["0"])[0])
+        raise ApiError(path, "HTTP 404", status=404)
+
     def _match_list_route(self, path: str) -> Any | None:
         parsed = urllib.parse.urlparse(path)
         respond = self._list_routes.get(parsed.path)
@@ -99,6 +250,9 @@ class MockTransport:
 
     def request(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> Any:
         self.calls.append(path)
+        for prefix, response in reversed(self._overrides):
+            if self._override_matches(path, prefix):
+                return self._resolve(path, response)
         if path in self.routes:
             return self._resolve(path, self.routes[path])
         list_route = self._match_list_route(path)

@@ -4,7 +4,7 @@ The port's copy of ``headlamp_tpu/viewport``: pages ask for a drill-down
 tree (``tree.viewport_tree`` — per-region rollups computed on the device
 at scale), a cursor-stable row window (``window_nodes`` /
 ``window_pods``, optionally scoped to one region — seek cursors that
-survive fleet churn) or a memoized derived map (``pods_by_node``), and
+survive fleet churn; ``window_series`` over trend series) or a memoized derived map (``pods_by_node``), and
 the O(N) passes run once per snapshot generation, memoized on the
 snapshot view itself.
 """
@@ -26,6 +26,7 @@ from .window import (
     running_chips,
     window_nodes,
     window_pods,
+    window_series,
 )
 
 __all__ = [
@@ -45,4 +46,5 @@ __all__ = [
     "viewport_tree",
     "window_nodes",
     "window_pods",
+    "window_series",
 ]

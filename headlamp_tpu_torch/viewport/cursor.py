@@ -17,7 +17,7 @@ inspectable in a debugger — carrying:
     ETag/coalesce key; seek semantics do not need it to be current).
 ``s``
     sort id (``rn`` ready-then-name node order, ``nn`` namespaced pod
-    name). A cursor replayed against a different sort is ignored, never
+    name, ``lb`` trend-series label). A cursor replayed against a different sort is ignored, never
     misapplied.
 ``q``
     8-hex hash of the filter query the window was cut under — same
@@ -41,6 +41,7 @@ from dataclasses import dataclass
 #: Sort ids — the ``s`` vocabulary.
 SORT_NODES = "rn"
 SORT_PODS = "nn"
+SORT_SERIES = "lb"
 
 _MAX_TOKEN = 512  # hard cap: a cursor is ~tens of bytes, never KBs
 

@@ -1,8 +1,7 @@
 """Cursor-windowed row selection over the snapshot.
 
-The port's copy of the parts of ``headlamp_tpu/viewport/window.py`` the
-node and pod tables and the drill-down page use (`:55-265`); the trend
-series window waits for the trends page.
+The port's copy of ``headlamp_tpu/viewport/window.py``: the node and pod
+tables, the drill-down page and the trend page's browse mode use it.
 
 The cost model: the first window cut from a new snapshot generation pays
 one O(N log N) sort per (collection, filter, region); the result is
@@ -24,7 +23,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from ..domain import objects as obj
-from .cursor import SORT_NODES, SORT_PODS, decode_cursor, encode_cursor, query_hash
+from .cursor import SORT_NODES, SORT_PODS, SORT_SERIES, decode_cursor, encode_cursor, query_hash
 from .tree import viewport_tree
 
 #: Default window size — one screenful of rows.
@@ -238,4 +237,31 @@ def window_pods(
         limit=limit,
         cursor=cursor,
         generation=getattr(state.view, "version", None),
+    )
+
+
+def window_series(
+    labels_and_items: list[tuple[str, Any]],
+    *,
+    limit: int = DEFAULT_LIMIT,
+    cursor: str | None = None,
+    query: str = "",
+    generation: int | None = None,
+) -> Window:
+    """A cursor window over trend series, sorted by label: label order is
+    stable under value churn, which is why the busiest-first grouped view
+    cannot page and this listing can. The caller passes (label, item)
+    pairs; there is no snapshot memo, as the history tier already hands
+    over a point-in-time list."""
+    keyed = sorted(labels_and_items, key=lambda kv: kv[0])
+    keys: list[tuple] = [(label,) for label, _item in keyed]
+    items = [item for _label, item in keyed]
+    return _cut(
+        keys,
+        items,
+        sort=SORT_SERIES,
+        query=query,
+        limit=limit,
+        cursor=cursor,
+        generation=generation,
     )

@@ -2,9 +2,11 @@
 version at widths and batches the CPU tests cannot reach, its operand
 checks, its replay inside a CUDA graph, the fit on the card against the
 same fit on the CPU, the fleet rollup on the card against its Python
-oracle, and the viewport tree's region rollup on the card against
-``_host_sums``. The kernel has no CPU mode, so every test here needs a CUDA
-device and skips without one. On the card:
+oracle, the viewport tree's region rollup on the card against
+``_host_sums``, the trend statistics on the card against their plain
+version, and the host's background warm landing on the app's card. The
+kernel has no CPU mode, so every test here needs a CUDA device and skips
+without one. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -333,3 +335,56 @@ def test_region_tree_reads_columns_uploaded_by_another_thread(cuda):
     tree, got, want = out["result"]
     assert state.fleet_cache.counters() == {"hits": 1, "misses": 0, "uploads": 1}
     assert tree.source == "device" and got == want
+
+
+def test_trend_stats_on_card_match_the_plain_version(cuda):
+    from headlamp_tpu_torch.analytics.trends import python_series_stats, series_stats_batch
+
+    rng = np.random.default_rng(5)
+    cases = [[], [float(np.float32(0.3))], [float(np.float32(0.1))] * 288,
+             rng.random(288).astype(np.float32).tolist(),
+             (rng.random(17) * 1000).astype(np.float32).tolist()]
+    for got, case in zip(series_stats_batch(cases, device=cuda), cases):
+        want = python_series_stats(case)
+        assert all(got[k] == want[k] for k in ("n", "latest", "min", "max"))
+        for k in ("mean", "slope_per_step"):
+            assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), k
+    assert series_stats_batch(cases[2:3], device=cuda)[0]["slope_per_step"] == 0.0
+
+
+def test_background_warm_lands_on_the_apps_card(cuda):
+    # The loop's thread starts with no CUDA context: its warm must land
+    # on the app's card, and the request path then only reads it.
+    import copy
+    import time
+
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.server import DashboardApp
+
+    t = fleet_transport(fleet_viewport(1024))
+    app = DashboardApp(t, device=cuda, min_sync_interval_s=3600.0)
+    app.start_background_sync(3600.0)
+
+    def wait_ticks(n):
+        deadline = time.monotonic() + 60
+        while app._background_counters["ticks"] < n:
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+
+    try:
+        wait_ticks(1)
+        cache = app._ctx.fleet_cache
+        view = app._last_snapshot.provider("tpu").view
+        cols = cache.fleet_for(view)
+        assert cols.node_capacity.device == torch.device("cuda", torch.cuda.current_device())
+        assert cache.counters()["uploads"] == 1 and app._background_counters["warms"] == 1
+        assert app.handle("/tpu/fleet")[0] == 200 and app.last_request_device_gets == 1
+        node = copy.deepcopy(view.nodes[0])
+        node["metadata"]["labels"]["example.com/marker"] = "x"
+        t.node_feed.push("MODIFIED", node)
+        app._background_wake.set()
+        wait_ticks(2)
+        assert app._background_counters["warms"] == 2 and cache.counters()["uploads"] == 2
+        assert app.handle("/tpu/fleet")[0] == 200 and cache.counters()["uploads"] == 2
+    finally:
+        app.close()

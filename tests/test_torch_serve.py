@@ -211,10 +211,16 @@ def test_metrics_request_trace_and_healthz_runtime():
     assert trace_ring.snapshot()[0] == trace  # probes stay out of the ring
     assert set(health) == {
         "ok", "loading", "errors", "fetched_at", "nodes", "analytics", "runtime",
+        "last_sync_age_s", "consecutive_sync_failures", "background_sync",
     } and health["ok"] is True
     assert health["nodes"] == 2 and health["analytics"]["chosen_backend"] == "python"
+    assert health["background_sync"] is False and health["consecutive_sync_failures"] == 0
     runtime = health["runtime"]
-    assert set(runtime) == {"transfer", "fleet_cache", "warm_carries", "refresh", "device"}
+    assert set(runtime) == {
+        "transfer", "fleet_cache", "warm_carries", "refresh", "device",
+        "watch", "background", "history",
+    }
+    assert runtime["history"]["scrapes"] == 1  # the metrics fetch was captured
     assert runtime["device"] == {
         "torch_device": "cpu", "kernel": "forecast_mlp_forward", "kernel_path": "torch",
         "launches": ff.LAUNCHES.n, "build": None,

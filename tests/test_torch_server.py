@@ -8,7 +8,8 @@ package's PRNGKey(0) init, so the two fit the same model. The page's
 ``perf_counter``); the forecasts, cold and after a warm background
 refit, agree to 1e-2 as in ``tests/test_torch_service.py``. A fit that
 raises is a 500 naming it on the request path and a counted, named
-refit error on the background path; an unported route is a 404, and
+refit error on the background path; an unported route is a 404 (and
+``/tpu/trends`` a 200, now that the history store is ported), and
 ``/refresh`` returns home to the Overview.
 """
 
@@ -203,20 +204,25 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     assert len(warm_carries) == 1
 
 
-@pytest.mark.parametrize("path", ["/debug/traces/html", "/tpu/trends", "/intel", "/sloz"])
+@pytest.mark.parametrize("path", ["/debug/traces/html", "/debug/generationz/html", "/intel", "/sloz"])
 def test_unported_routes_are_404(path):
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     status, ctype, body = app.handle(path)
     assert (status, ctype) == (404, "text/html") and "No such page." in body
     assert app._route_label(path) == "other"
+    # The trend page is registered now: served, with its own route label.
+    status, ctype, body = app.handle("/tpu/trends")
+    assert (status, ctype) == (200, "text/html") and "History store" in body
+    assert app._route_label("/tpu/trends") == "/tpu/trends"
 
 
 def test_refresh_bumps_the_epoch_and_redirects_only_to_routes():
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     assert app.handle("/refresh?back=/tpu/metrics") == (302, "/tpu/metrics", "")
-    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/tpu/trends"):
+    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/intel"):
         assert app.handle(f"/refresh?back={back}") == (302, "/tpu", "")
-    assert app._cache_epoch == 5
+    assert app.handle("/refresh?back=/tpu/trends") == (302, "/tpu/trends", "")
+    assert app._cache_epoch == 6
 
 
 def test_server_entry_point_needs_cuda_unless_asked_for_cpu(monkeypatch):
