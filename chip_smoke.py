@@ -1229,6 +1229,347 @@ def live_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[i
     return launches, sync_rows, trend_rows
 
 
+class _Registry:
+    """Install a program registry (and, with ``ledger``, a fresh graph
+    cost ledger) for a block, restoring the previous ones after."""
+
+    def __init__(self, reg: Any, ledger: Any = None) -> None:
+        self.reg, self.ledger = reg, ledger
+
+    def __enter__(self) -> Any:
+        from headlamp_tpu_torch.models import aot
+        from headlamp_tpu_torch.obs import graphcost
+
+        self._prev = aot.set_registry(self.reg)
+        self._prev_ledger = graphcost.set_ledger(self.ledger) if self.ledger is not None else None
+        return self.reg
+
+    def __exit__(self, *_exc: Any) -> None:
+        from headlamp_tpu_torch.models import aot
+        from headlamp_tpu_torch.obs import graphcost
+
+        aot.set_registry(self._prev)
+        if self._prev_ledger is not None:
+            graphcost.set_ledger(self._prev_ledger)
+
+
+def registry_startup_phase(torch: Any, clock: Callable[[], float], smi: str) -> dict[str, Any]:
+    """Step 14a: a fresh program registry's startup capture on the card
+    while a request thread GETs /tpu/metrics at --demo large; ready with
+    no capture error. Then, at --demo large with the registry ready: a
+    warm refit with the published TPU view is ONE fused replay and ONE
+    device-to-host copy, and /tpu reads the parked rollup with 0 copies;
+    a fresh app's cold and warm /tpu/metrics replay their fits; /tpu and
+    /tpu/fleet at fleet_viewport 1024/4096/16384 replay both rollups.
+    No request pays a capture. Returns the launches and the capture
+    times."""
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import graphcost
+    from headlamp_tpu_torch.obs.trace import trace_ring
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    reg, led = aot.registry(), graphcost.ledger()
+    mono = [70000.0]
+    warm_carries.invalidate()
+    LAUNCHES.reset()
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       min_sync_interval_s=3600.0, monotonic=lambda: mono[0])
+    t0 = time.perf_counter()
+    server = app.serve("127.0.0.1", 0)  # starts the startup capture
+    out: dict[str, Any] = {}
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            cold = pool.submit(lambda: (http_get(server.url + "/tpu/metrics"), time.perf_counter()))
+            check(reg.wait_ready(600.0), "the startup capture did not finish in 600 s")
+            ready_s = time.perf_counter() - t0
+            (status, body), got_at = cold.result()
+        check(status == 200 and "CUDA kernel (H100)" in body, f"/tpu/metrics during startup: {status}")
+        snap = reg.snapshot()
+        check(snap["state"] == "ready" and snap["compile_errors"] == 0 and snap["last_error"] is None
+              and snap["programs_compiled"] == len(aot.default_specs()),
+              f"the registry after startup: {snap}")
+        captures = {name: (row["capture_ms"], row["signatures"])
+                    for name, row in led.snapshot()["programs"].items() if row["captures"]}
+        out.update(ready_s=ready_s, capture_ms_total=snap["compile_ms_total"], captures=captures)
+        print(f"aot: startup capture of {snap['programs_compiled']} programs ready in "
+              f"{ready_s:.2f} s ({snap['compile_ms_total']} ms capturing) while a request thread "
+              f"GET /tpu/metrics ({status}, answered {got_at - t0:.2f} s after serve()); "
+              f"0 capture errors; capture ms (signatures) per program {captures}; on {smi}")
+        request_captures = led.request_captures()
+
+        # The fused request: a warm carry (the cold GET's) and the published
+        # TPU view of the 1024-node fleet.
+        check(http_get(server.url + "/tpu/nodes")[0] == 200, "GET /tpu/nodes")
+        before = led.snapshot()["programs"].get(aot.FUSED_PROGRAM, {}).get("replays", 0)
+        launches = LAUNCHES.n
+        mono[0] += app.FORECAST_GRACE_S + 1  # past the grace window: a blocking warm refit
+        status, body = http_get(server.url + "/tpu/metrics")
+        fused_trace = trace_ring.snapshot()[0]
+        replays = led.snapshot()["programs"][aot.FUSED_PROGRAM]["replays"] - before
+        check(status == 200 and "warm-start fit." in body and replays == 1
+              and app.last_request_device_gets == 1 and LAUNCHES.n == launches + 1
+              and "forecast.fused" in span_totals(fused_trace),
+              f"the fused request: {status}, {replays} replays, "
+              f"{app.last_request_device_gets} copies, {LAUNCHES.n - launches} launches, "
+              f"spans {span_totals(fused_trace)}")
+        status, body = http_get(server.url + "/tpu")
+        rollup = next(s for s in _spans(trace_ring.snapshot()[0]) if s["name"] == "analytics.rollup")
+        check(status == 200 and "Chip Allocation" in body and app.last_request_device_gets == 0
+              and rollup["attrs"].get("rollup_source") == "fused",
+              f"/tpu after the fused request: {status}, {app.last_request_device_gets} copies, "
+              f"rollup span {rollup['attrs']}")
+        out["fused_ms"] = fused_trace["duration_ms"]
+        print(f"aot: --demo large, warm refit with the published TPU view: 1 fused replay, 1 "
+              f"device-to-host copy, 1 kernel launch, handle() {fused_trace['duration_ms']} ms "
+              f"(spans {span_totals(fused_trace)}); then /tpu from the parked rollup with 0 "
+              f"copies (rollup_source fused)")
+    finally:
+        server.close()
+
+    # A fresh app: its cold and warm /tpu/metrics replay the fit graphs.
+    warm_carries.invalidate()
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       monotonic=lambda: mono[0])
+    server = app.serve("127.0.0.1", 0)
+    try:
+        hits, launches = reg.bucket_hits, LAUNCHES.n
+        for label in ("cold", "warm"):
+            status, body = http_get(server.url + "/tpu/metrics")
+            check(status == 200 and app.last_request_device_gets == 1,
+                  f"{label} /tpu/metrics after startup: {status}, {app.last_request_device_gets} copies")
+            mono[0] += app.FORECAST_GRACE_S + 1
+        check(reg.bucket_hits == hits + 2 and LAUNCHES.n == launches + 2,
+              f"cold and warm /tpu/metrics: {reg.bucket_hits - hits} hits, "
+              f"{LAUNCHES.n - launches} launches")
+    finally:
+        server.close()
+    for n in VIEWPORT_PAINT_NODES:
+        app = DashboardApp(fleet_transport(fleet_viewport(n)), device="cuda", clock=clock,
+                           min_sync_interval_s=3600.0)
+        before = led.snapshot()["programs"]
+        server = app.serve("127.0.0.1", 0)
+        try:
+            for path in ("/tpu", "/tpu/fleet"):
+                check(http_get(server.url + path)[0] == 200, f"GET {path} at {n} nodes")
+        finally:
+            server.close()
+        after = led.snapshot()["programs"]
+        for name in (aot.FLEET_ROLLUP, aot.REGION_ROLLUP):
+            check(after[name]["replays"] > before[name]["replays"]
+                  and after[name]["eager"] == before[name]["eager"],
+                  f"{name} at {n} nodes: {before[name]} -> {after[name]}")
+    check(led.request_captures() == request_captures == 0,
+          f"request-phase captures after startup: {led.request_captures()}")
+    out["launches"] = LAUNCHES.n
+    print(f"aot: request-phase captures 0 after startup over /tpu/metrics (cold, warm, fused), "
+          f"/tpu and /tpu/fleet at {list(VIEWPORT_PAINT_NODES)} nodes (every rollup a replay, "
+          f"none eager); registry {reg.counters()}; ledger {led.counters()}")
+    return out
+
+
+def _spans(trace: dict[str, Any]) -> list[dict[str, Any]]:
+    stack, spans = list(trace["spans"]), []
+    while stack:
+        node = stack.pop(0)
+        spans.append(node)
+        stack.extend(node["children"])
+    return spans
+
+
+def registry_programs_phase(torch: Any, smi: str) -> tuple[int, list[dict[str, Any]]]:
+    """Step 14b, on the ready registry: every forecast bucket's cold and
+    warm replay against the same masked program run eagerly on the card,
+    the kernel's output inside each replay against its plain version on
+    the fitted params, one launch per replay; the replayed fleet and
+    region rollups exactly equal to their Python oracles at every
+    size; replay against eager times and device times; the card's busy
+    share during a replayed cold fit. Returns the launches and rows."""
+    import numpy as np
+
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.analytics.fleet_torch import (
+        COLUMNS,
+        REGION_CLUSTER_SEGMENTS,
+        fleet_rollup,
+        pack_rollup,
+        region_rollup_host,
+        rollup_key,
+        rollup_to_dict,
+    )
+    from headlamp_tpu_torch.context import AcceleratorDataContext
+    from headlamp_tpu_torch.domain.accelerator import classify_fleet
+    from headlamp_tpu_torch.fleet import fleet_large, fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models import forecast as tf
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES, forecast_forward_reference
+    from headlamp_tpu_torch.obs import graphcost
+    from headlamp_tpu_torch.runtime.device_cache import DeviceFleetCache
+    from headlamp_tpu_torch.viewport import tree as vt
+
+    dev = torch.device("cuda")
+    reg, led = aot.registry(), graphcost.ledger()
+    idle = aot.AotProgramRegistry()  # never started: every program runs eagerly
+    rows: list[dict[str, Any]] = []
+    LAUNCHES.reset()
+    carries: dict[int, Any] = {}
+    for name, key in aot.default_specs():
+        if name not in (aot.COLD_PROGRAM, aot.WARM_PROGRAM):
+            continue
+        bucket, length, cfg, steps = key
+        n = 64 if bucket == 64 else 1
+        series = tf.synthetic_telemetry(n, length, torch.Generator().manual_seed(21), device=dev)
+        padded, weights = tf.pad_series_to_bucket(series, bucket)
+        if name == aot.COLD_PROGRAM:
+            params, opt_state = tf._initial_params(None, 0, cfg, dev), None
+        else:
+            params, opt_state = carries[bucket]
+        launches = LAUNCHES.n
+        preds, new_params, new_opt, mse = tf._try_aot_forecast(
+            name, series, params, opt_state, cfg, steps)
+        torch.cuda.synchronize()
+        check(LAUNCHES.n == launches + 1, f"{name} at {key[:2]}: {LAUNCHES.n - launches} launches")
+        carries[bucket] = (new_params, new_opt)
+        with LAUNCHES.tally():  # the comparisons launch for no path
+            if name == aot.COLD_PROGRAM:
+                eager = tf._bucketed_fit_forecast_state_program(padded, weights, params, cfg, steps)
+            else:
+                eager = tf._bucketed_warm_fit_forecast_program(
+                    padded, weights, params, opt_state, cfg, steps)
+            plain = forecast_forward_reference(new_params, series[:, -cfg.window:].contiguous())
+        diff = float(np.abs(preds - eager[0][:n].cpu().numpy()).max())
+        kernel_diff = float(np.abs(preds - plain.cpu().numpy()).max())
+        tol = PAGE_FIT_TOL if name == aot.COLD_PROGRAM else KERNEL_TOL
+        print(f"aot: {name} at (bucket {bucket}, length {length}, {steps} steps), {n} chips: "
+              f"replay vs eager masked program max-abs {diff:.3e} (tol {tol:g}); kernel inside "
+              f"the replay vs forecast_forward_reference on the fitted params {kernel_diff:.3e} "
+              f"(tol {KERNEL_TOL:g}); mse {mse:.6g}; 1 launch")
+        check(diff <= tol and kernel_diff <= KERNEL_TOL and math.isfinite(mse),
+              f"{name} at {key[:2]}: replay vs eager {diff}, kernel {kernel_diff}")
+    launches = LAUNCHES.n
+
+    for n in ROLLUP_NODES:
+        f = fleet_large(n)
+        view = classify_fleet(f["nodes"], f["pods"])["tpu"]
+        view.version = 1
+        cache = DeviceFleetCache(dev)
+        cache.warm(view)
+        before = led.snapshot()["programs"][aot.FLEET_ROLLUP]
+        got = stats.fleet_stats(view, device=dev, fleet_cache=cache, backend="cuda")
+        after = led.snapshot()["programs"][aot.FLEET_ROLLUP]
+        check(got == stats.python_fleet_stats(view) and after["replays"] == before["replays"] + 1
+              and after["eager"] == before["eager"],
+              f"the replayed fleet rollup at fleet_large({n}): {before} -> {after}")
+    for n in VIEWPORT_PAINT_NODES:
+        state = AcceleratorDataContext(fleet_transport(fleet_viewport(n)), device=dev).sync()
+        state = state.provider("tpu")
+        region_of, _, _, cluster_id, slice_id = vt._assignments(state.nodes)
+        args = (cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS)
+        before = led.snapshot()["programs"][aot.REGION_ROLLUP]
+        got = vt._device_sums(state, *args)
+        after = led.snapshot()["programs"][aot.REGION_ROLLUP]
+        check(got == vt._host_sums(state, *args) and after["replays"] == before["replays"] + 1
+              and after["eager"] == before["eager"],
+              f"the replayed region rollup at fleet_viewport({n}): {before} -> {after}")
+    print(f"aot: replayed fleet rollup equal to python_fleet_stats at fleet_large "
+          f"{list(ROLLUP_NODES)}, replayed region rollup equal to _host_sums at fleet_viewport "
+          f"{list(VIEWPORT_PAINT_NODES)}; one replay each, no eager run")
+
+    # Replay against eager, in turns on the same inputs; the registry
+    # swapped for an idle one runs the same call eagerly.
+    series = tf.synthetic_telemetry(64, 61, torch.Generator().manual_seed(22), device="cpu").numpy()
+    _, _, state = tf.fit_and_forecast_incremental(series, device=dev)
+    f = fleet_large(1024)
+    view = classify_fleet(f["nodes"], f["pods"])["tpu"]
+    view.version = 1
+    cache = DeviceFleetCache(dev)
+    cache.warm(view)
+    cols = cache.fleet_for(view)
+    vstate = AcceleratorDataContext(fleet_transport(fleet_viewport(1024)), device=dev).sync()
+    vstate = vstate.provider("tpu")
+    vfleet = vstate.fleet_cache.fleet_for(vstate.view)
+    region_of, _, _, cluster_id, slice_id = vt._assignments(vstate.nodes)
+    ids = vt._region_ids(vfleet, cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS)
+    calls = {
+        "cold fit, 64 chips": lambda: tf.fit_and_forecast_incremental(series, device=dev),
+        "warm fit, 64 chips": lambda: tf.fit_and_forecast_incremental(series, state=state, device=dev),
+        "fleet rollup, 1024 nodes": lambda: rollup_to_dict(cols, dev),
+        "region rollup, fleet_viewport 1024": lambda: region_rollup_host(vfleet, *ids, dev),
+    }
+    with LAUNCHES.tally():
+        for label, call in calls.items():
+            samples: dict[str, list[float]] = {"replay": [], "eager": []}
+            for _ in range(5):
+                for kind in ("replay", "eager", "eager", "replay"):
+                    with _Registry(reg if kind == "replay" else idle):
+                        t0 = time.perf_counter()
+                        call()
+                        samples[kind].append((time.perf_counter() - t0) * 1e3)
+            row = {"program": label, "replay_ms": statistics.median(samples["replay"]),
+                   "eager_ms": statistics.median(samples["eager"])}
+            rows.append(row)
+            print(f"aot: {label}: replay p50 {row['replay_ms']:.3f} ms, eager p50 "
+                  f"{row['eager_ms']:.3f} ms (host clock, one copy each, 10 calls each in turns); "
+                  f"on {smi}")
+        # Device time of one replay (copy-in and graph) against the eager
+        # ops, CUDA events around TIMED_CALLS calls.
+        fit_key = (64, 61, tf.ForecastConfig(), 60)
+        padded, weights = tf.pad_series_to_bucket(torch.as_tensor(series, device=dev), 64)
+        init = tf._initial_params(None, 0, tf.ForecastConfig(), dev)
+        program = reg.lookup(aot.COLD_PROGRAM, fit_key, dev)
+        fit_inputs = [padded, weights, *tf.carry_tensors(init)]
+        fleet_program = reg.lookup(aot.FLEET_ROLLUP, rollup_key(cols), dev)
+        tensors = [getattr(cols, name) for name in COLUMNS]
+        # The eager fit's thousands of launches outrun any spin queued
+        # ahead of them, so its events would time the host's enqueue: it
+        # gets the busy share below instead.
+        device_rows = {
+            "cold fit graph, 64 chips": (
+                lambda: program.run(fit_inputs, lambda out: None), None),
+            "fleet rollup graph, 1024 nodes": (
+                lambda: fleet_program.run(tensors, lambda out: None),
+                lambda: pack_rollup(fleet_rollup(*tensors))),
+        }
+        for label, (replay, eager) in device_rows.items():
+            replay_ms, _ = time_device_ms(replay)
+            eager_ms = time_device_ms(eager)[0] if eager is not None else None
+            print(f"aot: {label}: device_ms replay {replay_ms:.6f} (copy-in and graph), eager "
+                  f"{'not measured' if eager_ms is None else f'{eager_ms:.6f}'} (CUDA events, "
+                  f"median of {TIMED_CALLS}); on {smi}")
+            rows.append({"program": label, "replay_device_ms": replay_ms,
+                         "eager_device_ms": eager_ms})
+        # The card's busy share during one replayed cold fit.
+        t0 = time.perf_counter()
+        tf.fit_and_forecast_incremental(series, device=dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, n_events, top = profile_device(
+            torch, lambda: tf.fit_and_forecast_incremental(series, device=dev))
+    if n_events == 0:
+        print("aot: replayed cold fit: device busy share not measured (no CUDA events)")
+    else:
+        print(f"aot: replayed cold fit, 64 chips: device busy {busy_ms:.3f} ms in {n_events} "
+              f"device events over {wall_ms:.3f} ms unprofiled; busy share {busy_ms / wall_ms:.3f}; "
+              f"top {[(name[:60], round(ms, 3)) for name, ms in top]}; on {smi}")
+        rows.append({"program": "replayed cold fit busy share", "busy_ms": busy_ms,
+                     "wall_ms": wall_ms, "device_events": n_events})
+    return launches, rows
+
+
+def program_registry_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, list]:
+    """Step 14: the program registry as CUDA graphs. A fresh registry and
+    ledger for the step, so its startup capture is seen from the start.
+    Returns the kernel launches of its paths and the timing rows."""
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.obs import graphcost
+
+    with _Registry(aot.AotProgramRegistry(), graphcost.GraphCostLedger()):
+        host = registry_startup_phase(torch, clock, smi)
+        launches, rows = registry_programs_phase(torch, smi)
+    return host["launches"] + launches, [{"startup": host}] + rows
+
+
 def re_cursor(body: str) -> str:
     """The next-window cursor a windowed page links to."""
     found = re.search(r'cursor=([A-Za-z0-9_-]+)" class="hl-res-link hl-cursor-next"', body)
@@ -1505,6 +1846,10 @@ def main() -> int:
     # 13. The live host: background sync with list+watch, the warm, 410
     #     Gone, the history-first forecast and the trend page.
     live_launches, _sync_rows, trend_rows = live_host_phase(torch, clock, smi)
+
+    # 14. The program registry: the startup capture beside a request, the
+    #     fused request, every bucket's replay against its eager program.
+    registry_launches, registry_rows = program_registry_phase(torch, clock, smi)
     print(json.dumps({"device_programs": [
         {"name": "fleet_rollup", "route": "torch ops",
          "replaces": "headlamp_tpu/analytics/fleet_jax.py:98", "by_nodes": fleet_rows},
@@ -1512,6 +1857,8 @@ def main() -> int:
          "replaces": "headlamp_tpu/analytics/fleet_jax.py:243", "by_nodes": region_rows},
         {"name": "trend_stats", "route": "torch ops",
          "replaces": "headlamp_tpu/analytics/trends.py:15", "by_series": trend_rows},
+        {"name": "program_registry", "route": "cuda graphs",
+         "replaces": "headlamp_tpu/models/aot.py:332", "rows": registry_rows},
     ]}))
 
     # 8. The record.
@@ -1523,14 +1870,15 @@ def main() -> int:
         "source": "headlamp_tpu_torch/kernels/forecast_mlp.cu",
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
         "launches": (page_launches + scale_launches + one_launches + serve_launches
-                     + cluster_launches + viewport_launches + live_launches),
+                     + cluster_launches + viewport_launches + live_launches + registry_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
                              "dashboard_host": serve_launches,
                              "cluster_dashboard": cluster_launches,
                              "fleet_drilldown": viewport_launches,
-                             "live_host": live_launches},
+                             "live_host": live_launches,
+                             "program_registry": registry_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -23,6 +23,9 @@ What is held exactly to the JAX program:
 tensor on the device (each value is an integer below 2**53 or a float32,
 both exact in float64) and crosses to the host in one counted copy
 through ``runtime.transfer.fetch``, as JAX's one ``device_get`` does.
+Both rollups dispatch through the program registry (``models/aot.py``):
+a replay of the graph captured at the columns' bucket once the registry
+is ready, the same torch ops eagerly otherwise.
 
 The region rollup (`fleet_jax.py:153-318`) sums both drill-down levels
 of the viewport tree — per cluster and per slice — in the same way, from
@@ -160,14 +163,6 @@ def fleet_rollup(
     }
 
 
-def rollup_arrays(fleet: FleetArrays, device: DeviceLike = None) -> dict[str, torch.Tensor]:
-    """:func:`fleet_rollup` over ``fleet``'s columns. Device-resident
-    columns (``runtime.device_cache``) are used in place; numpy columns
-    are copied to ``device`` first (the unversioned path)."""
-    cols = [torch.as_tensor(getattr(fleet, name), device=device) for name in COLUMNS]
-    return fleet_rollup(*cols)
-
-
 def pack_rollup(out: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """The host-bound values of one rollup in one float64 tensor on its
     device: the scalars, then phase counts, generation counts and the
@@ -217,15 +212,42 @@ def aggregates_to_host_dict(out: Mapping[str, Any], n_nodes: int) -> dict[str, A
     }
 
 
+def rollup_key(fleet: FleetArrays) -> tuple[tuple[int], tuple[int]]:
+    """The program registry's key of both rollups over ``fleet``: its
+    ``((node_pad,), (pod_pad,))`` column buckets."""
+    return ((fleet.n_nodes_padded,), (fleet.n_pods_padded,))
+
+
+def _fetch_packed(outputs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    from ..runtime import transfer
+
+    return transfer.fetch(outputs[0])
+
+
 def rollup_to_dict(fleet: FleetArrays, device: DeviceLike = None) -> dict[str, Any]:
     """Host-side view of the rollup: scalars as ints, vocabulary vectors
     as name→count mappings — the shape ``allocation_summary`` and
     ``count_pod_phases`` produce, so pages can swap implementations. One
     counted device-to-host copy: inside a request's ``TransferBatch`` it
-    is that request's copy."""
+    is that request's copy.
+
+    Dispatched through the program registry (`fleet_jax.py:320-358`):
+    with a graph captured at ``analytics.fleet_rollup`` and the columns'
+    bucket, the columns are copied into its static inputs and it is
+    replayed; otherwise the torch ops run eagerly, counted in the graph
+    cost ledger."""
+    from ..models import aot
+    from ..obs import graphcost
     from ..runtime import transfer
 
-    packed = transfer.fetch(pack_rollup(rollup_arrays(fleet, device)))
+    cols = [torch.as_tensor(getattr(fleet, name), device=device) for name in COLUMNS]
+    reg, key = aot.registry(), rollup_key(fleet)
+    program = reg.lookup(aot.FLEET_ROLLUP, key, cols[0].device)
+    if program is not None:
+        packed = reg.replay(aot.FLEET_ROLLUP, key, program, cols, _fetch_packed)
+    else:
+        with graphcost.eager(aot.FLEET_ROLLUP):
+            packed = transfer.fetch(pack_rollup(fleet_rollup(*cols)))
     return rollup_host_view(unpack_rollup(packed), fleet.n_nodes)
 
 
@@ -361,6 +383,36 @@ def region_rollup_arrays(
 
     ids = [torch.as_tensor(node_cluster, device=dev), torch.as_tensor(node_slice, device=dev)]
     return region_rollup(*on_device(REGION_NODE_COLUMNS), *ids, *on_device(REGION_POD_COLUMNS))
+
+
+def region_rollup_host(
+    fleet: FleetArrays, node_cluster: Any, node_slice: Any, device: DeviceLike = None
+) -> dict[str, Any]:
+    """The region rollup's host view (:func:`unpack_region_rollup`) in one
+    counted copy, dispatched through the program registry as
+    :func:`rollup_to_dict` is, under ``analytics.region_rollup`` and the
+    same key (`fleet_jax.py:274-317`): a replay of the captured graph
+    with the columns and the id columns copied into its static inputs,
+    or :func:`region_rollup_arrays` eagerly."""
+    from ..models import aot
+    from ..obs import graphcost
+    from ..runtime import transfer
+
+    dev = resolve_device(device)
+    reg, key = aot.registry(), rollup_key(fleet)
+    program = reg.lookup(aot.REGION_ROLLUP, key, dev)
+    if program is not None:
+        inputs = (
+            [torch.as_tensor(getattr(fleet, name), device=dev) for name in REGION_NODE_COLUMNS]
+            + [torch.as_tensor(node_cluster, device=dev), torch.as_tensor(node_slice, device=dev)]
+            + [torch.as_tensor(getattr(fleet, name), device=dev) for name in REGION_POD_COLUMNS]
+        )
+        packed = reg.replay(aot.REGION_ROLLUP, key, program, inputs, _fetch_packed)
+    else:
+        with graphcost.eager(aot.REGION_ROLLUP):
+            out = region_rollup_arrays(fleet, node_cluster, node_slice, dev)
+            packed = transfer.fetch(pack_region_rollup(out))
+    return unpack_region_rollup(packed)
 
 
 def pack_region_rollup(out: Mapping[str, torch.Tensor]) -> torch.Tensor:

@@ -39,7 +39,7 @@ from ..obs.trace import annotate as _annotate
 from ..obs.trace import span as _span
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
-    from ..runtime.device_cache import DeviceFleetCache
+    from ..runtime.device_cache import DeviceFleetCache, RollupResultCache
 
 #: Node-utilization percentage at or above which a node counts as hot —
 #: the UI kit's critical threshold (`NodesPage.tsx:38`).
@@ -247,6 +247,7 @@ def fleet_stats(
     device: DeviceLike = None,
     fleet_cache: DeviceFleetCache | None = None,
     backend: str | None = None,
+    rollup_results: RollupResultCache | None = None,
 ) -> dict[str, Any]:
     """Serving-path aggregates for one provider view.
 
@@ -259,16 +260,19 @@ def fleet_stats(
 
     Traced as ``analytics.rollup`` with the node count, annotated with
     the backend that served and, for the device rollup, the fleet
-    cache's outcome."""
+    cache's outcome. ``rollup_results`` holds the rollups the fused
+    rollup+forecast parked: the device rollup serves one for the view's
+    version with no device work."""
     dev = resolve_device(device)
     with _span("analytics.rollup", nodes=len(view.nodes)):
-        return _fleet_stats_dispatch(view, dev, fleet_cache, backend)
+        return _fleet_stats_dispatch(view, dev, fleet_cache, rollup_results, backend)
 
 
 def _fleet_stats_dispatch(
     view: FleetView,
     device: torch.device,
     fleet_cache: DeviceFleetCache | None,
+    rollup_results: RollupResultCache | None,
     backend: str | None,
 ) -> dict[str, Any]:
     name = device_backend(device)
@@ -277,7 +281,7 @@ def _fleet_stats_dispatch(
             return python_fleet_stats(view)
         if backend != name:
             raise ValueError(f"backend {backend!r} does not run on {device}")
-        return _device_stats(view, device, fleet_cache)
+        return _device_stats(view, device, fleet_cache, rollup_results)
     n = len(view.nodes)
     choice = chosen_backend(n, device)
     if choice == "calibrating":
@@ -287,7 +291,7 @@ def _fleet_stats_dispatch(
                 # between the read above and the acquire already
                 # published fresh timings.
                 if chosen_backend(n, device) == "calibrating":
-                    return _calibrate(view, device, fleet_cache)
+                    return _calibrate(view, device, fleet_cache, rollup_results)
             finally:
                 calibration.end_probe()
             choice = chosen_backend(n, device)
@@ -297,12 +301,15 @@ def _fleet_stats_dispatch(
         else:
             choice = "python"
     if choice == name:
-        return _device_stats(view, device, fleet_cache)
+        return _device_stats(view, device, fleet_cache, rollup_results)
     return python_fleet_stats(view)
 
 
 def _calibrate(
-    view: FleetView, device: torch.device, fleet_cache: DeviceFleetCache | None
+    view: FleetView,
+    device: torch.device,
+    fleet_cache: DeviceFleetCache | None,
+    rollup_results: RollupResultCache | None,
 ) -> dict[str, Any]:
     """First at-scale request of a window: serve the device rollup (it
     uploads the columns), then time three more device rollups on the
@@ -318,9 +325,9 @@ def _calibrate(
             samples.append((time.perf_counter() - t0) * 1000)
         return statistics.median(samples)
 
-    stats = _device_stats(view, device, fleet_cache)
+    stats = _device_stats(view, device, fleet_cache, rollup_results)
     with _span("analytics.calibrate", nodes=len(view.nodes)):
-        device_ms = timed(lambda: _device_stats(view, device, fleet_cache))
+        device_ms = timed(lambda: _device_stats(view, device, fleet_cache, rollup_results))
         python_ms = timed(lambda: python_fleet_stats(view))
     calibration.publish(
         backend=device_backend(device),
@@ -332,15 +339,30 @@ def _calibrate(
 
 
 def _device_stats(
-    view: FleetView, device: torch.device, fleet_cache: DeviceFleetCache | None
+    view: FleetView,
+    device: torch.device,
+    fleet_cache: DeviceFleetCache | None,
+    rollup_results: RollupResultCache | None,
 ) -> dict[str, Any]:
-    """The rollup on ``device`` over the view's columns: cached on the
-    device when ``fleet_cache`` holds the view's version, encoded (and
-    copied by the rollup) otherwise."""
+    """The rollup on ``device`` over the view's columns: the dict the
+    fused rollup+forecast parked for the view's version when there is
+    one (no device work, `stats.py:453-475` of the JAX package), else
+    the rollup on the columns, cached on the device when the fleet cache
+    holds the view's version, encoded (and copied by the rollup)
+    otherwise."""
     from .encode import encode_fleet
     from .fleet_torch import rollup_to_dict
 
     _annotate(backend=device_backend(device))
+    parked = (
+        rollup_results.get(view.provider.name, view.version)
+        if rollup_results is not None
+        else None
+    )
+    if parked is not None:
+        _annotate(rollup_source="fused")
+        parked["generation_counts"] = _generation_counts(view.nodes)
+        return parked
     fleet = (
         fleet_cache.fleet_for(view)
         if fleet_cache is not None

@@ -40,7 +40,7 @@ from typing import Any, Callable, Mapping
 from ..device import DeviceLike, resolve_device
 from ..domain import objects as obj
 from ..domain.accelerator import PROVIDERS, FleetView, Provider, classify_fleet
-from ..runtime.device_cache import DeviceFleetCache
+from ..runtime.device_cache import DeviceFleetCache, RollupResultCache
 from ..transport.api_proxy import DEFAULT_TIMEOUT_S, ApiError, Transport
 from .sources import (
     NODES_PATH,
@@ -74,10 +74,12 @@ class ProviderState:
     #: Kept per provider (not in the global error banner) so an absent
     #: provider degrades independently.
     plugin_pods_error: str | None = None
-    #: Where the fleet rollup runs, and the context's device-resident
-    #: columns (None: encode and upload on every call).
+    #: Where the fleet rollup runs, the context's device-resident
+    #: columns (None: encode and upload on every call) and the rollups
+    #: the fused rollup+forecast parked for its snapshots.
     device: DeviceLike = None
     fleet_cache: DeviceFleetCache | None = None
+    rollup_results: RollupResultCache | None = None
     #: Lazily computed dashboard aggregates (see analytics.stats).
     _stats: Mapping[str, Any] | None = None
 
@@ -112,7 +114,8 @@ class ProviderState:
             from ..analytics.stats import fleet_stats
 
             self._stats = fleet_stats(
-                self.view, device=self.device, fleet_cache=self.fleet_cache
+                self.view, device=self.device, fleet_cache=self.fleet_cache,
+                rollup_results=self.rollup_results,
             )
         return self._stats
 
@@ -150,7 +153,9 @@ class AcceleratorDataContext:
     is where the snapshot's fleet rollup runs: CUDA unless the caller
     asks for ``"cpu"``; without CUDA the constructor raises. The context
     owns the device-resident fleet columns of its snapshots
-    (``fleet_cache``), keyed by its own snapshot versions."""
+    (``fleet_cache``) and the rollups the fused rollup+forecast parked
+    for them (``rollup_results``), both keyed by its own snapshot
+    versions."""
 
     #: Reactive-track page size. 500 keeps each page's JSON well under
     #: what a 2 s per-request timeout can move even on a slow apiserver;
@@ -174,6 +179,7 @@ class AcceleratorDataContext:
     ) -> None:
         self._device = resolve_device(device)
         self.fleet_cache = DeviceFleetCache(self._device)
+        self.rollup_results = RollupResultCache()
         self._transport = transport
         self._providers = PROVIDERS
         self._sources = default_sources()
@@ -540,6 +546,7 @@ class AcceleratorDataContext:
                 plugin_pods_error=self._plugin_pod_errors.get(p.name),
                 device=self._device,
                 fleet_cache=self.fleet_cache,
+                rollup_results=self.rollup_results,
             )
 
         errors = [e for e in (self._node_error, self._pod_error) if e]

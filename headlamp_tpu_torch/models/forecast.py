@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..obs import graphcost
 from ..runtime import transfer
 
 Params = dict[str, torch.Tensor]
@@ -209,6 +210,16 @@ def adam_update_(
         params[name].sub_(learning_rate * update)
 
 
+def _masked_loss_fn(
+    params: Params, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """:func:`loss_fn` with a weight per example: padded chips carry
+    weight 0, so they never reach the fit (`forecast.py:689-696` of the
+    JAX package)."""
+    per_example = torch.mean((forward(params, x) - y) ** 2, dim=1)
+    return torch.sum(per_example * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
 def _train(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -216,26 +227,31 @@ def _train(
     opt_state: AdamState,
     cfg: ForecastConfig,
     steps: int,
+    weights: torch.Tensor | None = None,
 ) -> tuple[Params, AdamState, torch.Tensor]:
     """THE training loop: the cold fit is this loop from a fresh init,
-    the warm fit this loop from a carry, so the two never train
-    different models. Returns new (params, opt_state, final MSE); the
-    inputs are copied, never modified. The MSE is taken at the RETURNED
-    params (one more loss after the last step), as a device scalar.
-    Grad mode is per thread, so the loop turns it on for itself: a
-    server's request and refit threads may call it from any mode."""
+    the warm fit this loop from a carry, and the bucketed programs this
+    loop with a weight per example (:func:`_masked_loss_fn`), so none of
+    them trains a different model. Returns new (params, opt_state, final
+    MSE); the inputs are copied, never modified. The MSE is taken at the
+    RETURNED params (one more loss after the last step), as a device
+    scalar. Grad mode is per thread, so the loop turns it on for itself:
+    a server's request and refit threads may call it from any mode. It
+    never syncs the host, so a CUDA graph can capture it."""
+    def loss(p: Params) -> torch.Tensor:
+        return loss_fn(p, x, y) if weights is None else _masked_loss_fn(p, x, y, weights)
+
     model = ForecastMLP(params)
     state = _clone_adam(opt_state, x.device)
     live = model.as_params()
-    weights = list(live.values())
+    tensors = list(live.values())
     with torch.enable_grad():
         for _ in range(steps):
-            loss = loss_fn(live, x, y)
-            grads = torch.autograd.grad(loss, weights)
+            grads = torch.autograd.grad(loss(live), tensors)
             adam_update_(live, dict(zip(live, grads)), state, cfg.learning_rate)
     fitted = model.detached_params()
     with torch.no_grad():
-        final = loss_fn(fitted, x, y)
+        final = loss(fitted)
     return fitted, state, final
 
 
@@ -261,7 +277,8 @@ class InferenceDispatch(NamedTuple):
     carried_from_generation: int | None = None
     #: Why a warm refinement was thrown away for a cold refit.
     warm_demotion_reason: str | None = None
-    #: What the fit trained on: the port has only the live range query.
+    #: What the fit trained on: "live-window" for a fresh range query,
+    #: "history" for the captured history tier (stamped by the service).
     data_source: str = "live-window"
 
     @property
@@ -397,7 +414,13 @@ def fit_and_forecast_incremental(
     a carry whose cfg or chip count differs, or a warm fit whose final
     MSE exceeds ``COLD_MSE_TOLERANCE × max(cold_mse, 1e-4)``, is
     replaced by a cold refit. An exception propagates; it does not
-    demote. Persistence ("repeat") passes the state through untouched."""
+    demote. Persistence ("repeat") passes the state through untouched.
+
+    Once the process's program registry is ready (``models/aot.py``),
+    each fit replays the graph captured for the chip bucket that holds
+    the fleet (:func:`_try_aot_forecast`), where JAX's ``_run_fused``
+    consults its registry (`forecast.py:587`); a bucket miss runs the
+    same fit eagerly, counted in the graph cost ledger."""
     cfg = cfg or ForecastConfig()
     dev = resolve_device(device)
     series = _as_series(series, dev)
@@ -406,8 +429,24 @@ def fit_and_forecast_incremental(
         preds = transfer.fetch(_repeat_last(series, cfg.horizon)).numpy()
         return preds, InferenceDispatch("repeat"), state
 
+    def fit(
+        kind: str, n_steps: int, params: Params, opt_state: AdamState | None
+    ) -> tuple[np.ndarray, Params, AdamState, float]:
+        """(host predictions, params, Adam state, host MSE) of one fit
+        from ``params`` (and a fresh Adam state when ``opt_state`` is
+        None): a graph replay when one covers the shape, else eager."""
+        served = _try_aot_forecast(kind, series, params, opt_state, cfg, n_steps)
+        if served is not None:
+            return served
+        with graphcost.eager(_EAGER_NAMES[kind]):
+            x, y = make_windows(series, cfg.window, cfg.horizon)
+            if opt_state is None:
+                opt_state = adam_init(params)
+            params, opt_state, mse = _train(x, y, params, opt_state, cfg, n_steps)
+            preds, mse_host = fetch_host(_infer_recent(params, series, cfg), mse)
+        return preds, params, opt_state, mse_host
+
     path = _inference_path(dev)
-    x, y = make_windows(series, cfg.window, cfg.horizon)
     demotion: str | None = None
     carried_gen: int | None = None
     if state is not None:
@@ -418,10 +457,9 @@ def fit_and_forecast_incremental(
                 f"(chips {state.n_chips}->{n_chips})"
             )
         else:
-            params, opt_state, mse = _train(
-                x, y, _on(state.params, dev), state.opt_state, cfg, warm_steps
+            preds, params, opt_state, warm_mse = fit(
+                WARM_PROGRAM, warm_steps, _on(state.params, dev), state.opt_state
             )
-            preds, warm_mse = fetch_host(_infer_recent(params, series, cfg), mse)
             bound = COLD_MSE_TOLERANCE * max(state.cold_mse, _DEMOTION_MSE_FLOOR)
             if warm_mse > bound:
                 demotion = (
@@ -439,9 +477,9 @@ def fit_and_forecast_incremental(
                 return preds, dispatch, new_state
 
     # Cold fit — from scratch, or demoted from a rejected warm attempt.
-    params = _initial_params(init, seed, cfg, dev)
-    params, opt_state, mse = _train(x, y, params, adam_init(params), cfg, steps)
-    preds, cold_mse = fetch_host(_infer_recent(params, series, cfg), mse)
+    preds, params, opt_state, cold_mse = fit(
+        COLD_PROGRAM, steps, _initial_params(init, seed, cfg, dev), None
+    )
     generation = (state.generation + 1) if state is not None else 0
     new_state = WarmState(params, opt_state, cold_mse, generation, cfg, n_chips)
     dispatch = InferenceDispatch(
@@ -450,3 +488,196 @@ def fit_and_forecast_incremental(
         warm_demotion_reason=demotion,
     )
     return preds, dispatch, new_state
+
+
+# ---------------------------------------------------------------------------
+# Bucketed programs for the program registry (`forecast.py:673-886`)
+# ---------------------------------------------------------------------------
+#
+# The registry (``models/aot.py``) captures each program below once per
+# bucket as a CUDA graph, so the chip axis comes at a few canonical sizes
+# (``aot.CHIP_BUCKETS``) with a weight per chip masking the padding rows.
+# With every weight 1 the masked loss is the plain mean (each chip has the
+# same number of sliding-window examples), and padded rows get exactly
+# zero gradient. The programs never sync the host, and take every value a
+# graph cannot make for itself as an input: the cold program its initial
+# params, which the port draws on the host from a CPU generator
+# (:func:`_initial_params`).
+
+#: Registry names of the bucketed cold and warm programs (JAX's names).
+COLD_PROGRAM = "forecast.aot_fit_forecast_state"
+WARM_PROGRAM = "forecast.aot_warm_fit_forecast"
+#: Ledger names of the same fits run eagerly: JAX's plain programs.
+_EAGER_NAMES = {
+    COLD_PROGRAM: "forecast.fit_forecast_state_program",
+    WARM_PROGRAM: "forecast.warm_fit_forecast_program",
+}
+
+
+def _bucketed_fit_body(
+    series: torch.Tensor,
+    chip_weights: torch.Tensor,
+    params: Params,
+    opt_state: AdamState,
+    cfg: ForecastConfig,
+    steps: int,
+) -> tuple[torch.Tensor, Params, AdamState, torch.Tensor]:
+    """Windowing → the weighted training loop → inference over the
+    PADDED chip axis: ``(predictions, params, opt_state, final MSE)``.
+    ``chip_weights[c]`` is 1.0 for a real chip and 0.0 for padding; each
+    chip's sliding examples inherit its weight (the windows are
+    series-major, so ``repeat_interleave`` lines up)."""
+    x, y = make_windows(series, cfg.window, cfg.horizon)
+    n_pos = x.shape[0] // series.shape[0]
+    w = chip_weights.repeat_interleave(n_pos)
+    params, opt_state, mse = _train(x, y, params, opt_state, cfg, steps, w)
+    return _infer_recent(params, series, cfg), params, opt_state, mse
+
+
+def _bucketed_fit_forecast_state_program(
+    series: torch.Tensor,
+    chip_weights: torch.Tensor,
+    init: Params,
+    cfg: ForecastConfig,
+    steps: int,
+) -> tuple[torch.Tensor, Params, AdamState, torch.Tensor]:
+    """The cold bucketed fit: from ``init`` and a fresh Adam state,
+    through the same weighted loop as the warm program. JAX draws its
+    init inside the program from a key; here it is an input."""
+    return _bucketed_fit_body(series, chip_weights, init, adam_init(init), cfg, steps)
+
+
+def _bucketed_warm_fit_forecast_program(
+    series: torch.Tensor,
+    chip_weights: torch.Tensor,
+    params: Params,
+    opt_state: AdamState,
+    cfg: ForecastConfig,
+    steps: int,
+) -> tuple[torch.Tensor, Params, AdamState, torch.Tensor]:
+    """The warm bucketed refinement from a carried ``(params,
+    opt_state)``. JAX donates the carry; the port's graph copies it into
+    its static inputs (``aot.AotProgramRegistry.note_donation``)."""
+    return _bucketed_fit_body(series, chip_weights, params, opt_state, cfg, steps)
+
+
+def _rollup_forecast_body(
+    node_capacity: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    node_ready: torch.Tensor,
+    node_generation: torch.Tensor,
+    node_valid: torch.Tensor,
+    pod_request: torch.Tensor,
+    pod_phase: torch.Tensor,
+    pod_node_idx: torch.Tensor,
+    pod_valid: torch.Tensor,
+    series: torch.Tensor,
+    chip_weights: torch.Tensor,
+    params: Params,
+    opt_state: AdamState,
+    cfg: ForecastConfig,
+    steps: int,
+) -> tuple[torch.Tensor, torch.Tensor, Params, AdamState, torch.Tensor]:
+    """The fused request path (`forecast.py:759-806`): the fleet rollup
+    and the warm bucketed refinement as one program, captured as one
+    graph. The rollup comes out packed (``fleet_torch.pack_rollup``), so
+    the caller fetches it with the predictions and the MSE in one copy."""
+    from ..analytics.fleet_torch import fleet_rollup, pack_rollup  # lazy: import cycle
+
+    packed = pack_rollup(fleet_rollup(
+        node_capacity, node_allocatable, node_ready, node_generation, node_valid,
+        pod_request, pod_phase, pod_node_idx, pod_valid,
+    ))
+    out, params, opt_state, mse = _bucketed_fit_body(
+        series, chip_weights, params, opt_state, cfg, steps
+    )
+    return packed, out, params, opt_state, mse
+
+
+def pad_series_to_bucket(
+    series: torch.Tensor, bucket: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(padded [bucket, T] series, [bucket] float32 weights): zero rows
+    past the real chip count, with weight 0.0, so the masked programs
+    train on exactly the real chips; callers slice the predictions back
+    to ``series.shape[0]`` rows."""
+    n_chips = series.shape[0]
+    padded = series.new_zeros((bucket, series.shape[1]), dtype=torch.float32)
+    padded[:n_chips] = series
+    weights = series.new_zeros((bucket,), dtype=torch.float32)
+    weights[:n_chips] = 1.0
+    return padded, weights
+
+
+def carry_tensors(params: Params, opt_state: AdamState | None = None) -> list[torch.Tensor]:
+    """A carry flattened in a graph's input order: the params by name,
+    then (with an Adam state) its count, first and second moments."""
+    flat = [params[name] for name in PARAM_NAMES]
+    if opt_state is not None:
+        flat.append(opt_state.count)
+        flat += [opt_state.mu[name] for name in PARAM_NAMES]
+        flat += [opt_state.nu[name] for name in PARAM_NAMES]
+    return flat
+
+
+def carry_from_tensors(flat: Sequence[torch.Tensor]) -> tuple[Params, AdamState]:
+    """Inverse of :func:`carry_tensors` with an Adam state."""
+    k = len(PARAM_NAMES)
+    return dict(zip(PARAM_NAMES, flat[:k])), AdamState(
+        flat[k],
+        dict(zip(PARAM_NAMES, flat[k + 1 : 2 * k + 1])),
+        dict(zip(PARAM_NAMES, flat[2 * k + 1 : 3 * k + 1])),
+    )
+
+
+def clone_carry(params: Params, opt_state: AdamState) -> tuple[Params, AdamState]:
+    """A carry in fresh storage: out of a graph's pool, which its next
+    replay overwrites."""
+    return {name: t.clone() for name, t in params.items()}, _clone_adam(
+        opt_state, opt_state.count.device
+    )
+
+
+def _try_aot_forecast(
+    kind: str,
+    series: torch.Tensor,
+    params: Params,
+    opt_state: AdamState | None,
+    cfg: ForecastConfig,
+    steps: int,
+) -> tuple[np.ndarray, Params, AdamState, float] | None:
+    """Serve one fit from the process registry's graph for ``kind``
+    (:data:`COLD_PROGRAM` from ``params`` with a fresh Adam state, or
+    :data:`WARM_PROGRAM` from the carry) at the chip bucket holding the
+    series (`forecast.py:833-886`). Returns ``(host predictions sliced to
+    the real chips, params, opt_state, host MSE)``, or None when no graph
+    serves: the registry is not ready, the chip count is above every
+    bucket (a counted miss) or no graph was captured at this key (a
+    counted miss). The replay holds the graph's lock until the carry is
+    cloned out and the predictions and MSE are fetched in one copy; a
+    replay that raises propagates."""
+    from . import aot
+
+    reg = aot.registry()
+    if not reg.ready():
+        return None
+    n_chips, length = series.shape
+    bucket = aot.chip_bucket_for(n_chips)
+    if bucket is None:
+        reg.note_bucket_miss(kind)
+        return None
+    key = (bucket, length, cfg, steps)
+    program = reg.executable(kind, key, series.device)
+    if program is None:
+        return None
+    padded, weights = pad_series_to_bucket(series, bucket)
+    carry = carry_tensors(params, opt_state)
+
+    def finish(outputs: tuple[torch.Tensor, ...]) -> tuple[np.ndarray, Params, AdamState, float]:
+        out, mse = outputs[0], outputs[-1]
+        kept = clone_carry(*carry_from_tensors(outputs[1:-1]))
+        preds, mse_host = fetch_host(out[:n_chips], mse)
+        return preds, kept[0], kept[1], mse_host
+
+    donated = sum(t.numel() * t.element_size() for t in carry) if opt_state is not None else 0
+    return reg.replay(kind, key, program, [padded, weights, *carry], finish, donated=donated)

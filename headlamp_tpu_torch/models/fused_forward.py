@@ -23,8 +23,10 @@ every operand to start on a 16-byte boundary.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
+from typing import Iterator
 
 import torch
 
@@ -42,15 +44,37 @@ class LaunchCount:
     """Kernel launches since the last :meth:`reset`; a run can show with
     it that its path went through the kernel. Request threads and
     background refits launch concurrently, so every update holds a lock
-    and their launches add up exactly."""
+    and their launches add up exactly.
+
+    A CUDA graph calls the wrapper once, at capture, and launches the
+    kernel on every replay without calling it again. So the thread that
+    warms up and captures a graph tallies its launches apart
+    (:meth:`tally`), where they count for no path, and each replay adds
+    its graph's tally (``models/aot.py``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        self._local = threading.local()
         self.n = 0
 
-    def add(self) -> None:
+    def add(self, count: int = 1) -> None:
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally[0] += count
+            return
         with self._lock:
-            self.n += 1
+            self.n += count
+
+    @contextlib.contextmanager
+    def tally(self) -> Iterator[list[int]]:
+        """Tally this thread's launches inside the block in the yielded
+        one-element list instead of the count."""
+        outer = getattr(self._local, "tally", None)
+        self._local.tally = tally = [0]
+        try:
+            yield tally
+        finally:
+            self._local.tally = outer
 
     def reset(self) -> None:
         with self._lock:

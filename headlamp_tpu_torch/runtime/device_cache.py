@@ -1,9 +1,9 @@
 """Device-resident fleet columns and process-scoped warm-start carries.
 
 The port's counterpart of ``headlamp_tpu/runtime/device_cache.py``'s
-``DeviceFleetCache`` (`:68-231`), ``WarmCarryCache`` and
-``warm_carries``. The fused rollup+forecast results
-(``RollupResultCache``) wait for the fused path.
+``DeviceFleetCache`` (`:68-231`), ``RollupResultCache`` (`:234-280`),
+``WarmCarryCache`` and ``warm_carries``. The fleet columns and the
+parked rollup results belong to each data context, not to the process.
 """
 
 from __future__ import annotations
@@ -153,6 +153,51 @@ class DeviceFleetCache:
                 "entries": entries,
                 "device": str(self.device),
             }
+
+
+class RollupResultCache:
+    """Host rollup dicts the fused rollup+forecast already computed
+    (``models/service.py``), keyed ``(provider, snapshot version)`` with
+    one entry per provider: the invalidation contract of
+    :class:`DeviceFleetCache`, so a parked result never serves a newer
+    fleet. The overview's ``fleet_stats`` for the same snapshot then
+    serves the parked dict with no device work and no copy. Entries are
+    stored finalized (``rollup_host_view``) and handed out as copies, so
+    a caller's ``generation_counts`` override cannot reach the cache.
+
+    One per data context, beside its :class:`DeviceFleetCache`, where
+    JAX keeps one for the process: a version is a context's own counter,
+    so a process-wide cache would serve one context's rollup to
+    another's equal version (JAX's fleet-cache collision)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._entries: dict[str, tuple[int, dict]] = {}
+        self.hits = 0
+        self.lookups = 0
+
+    def store(self, provider: str, version: int, stats: dict) -> None:
+        with self._lock:
+            self._entries[provider] = (version, dict(stats))
+
+    def get(self, provider: str, version: int | None) -> dict | None:
+        if version is None:
+            return None
+        with self._lock:
+            self.lookups += 1
+            entry = self._entries.get(provider)
+            if entry is None or entry[0] != version:
+                return None
+            self.hits += 1
+            return dict(entry[1])
+
+    def invalidate(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def counters(self) -> dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "lookups": self.lookups}
 
 
 class WarmCarryCache:

@@ -30,6 +30,7 @@ from typing import Iterator
 
 import torch
 
+from ..obs import graphcost as _graphcost
 from ..obs.metrics import registry as _metrics_registry
 from ..obs.trace import span as _span
 
@@ -73,11 +74,14 @@ _ACTIVE: ContextVar[TransferBatch | None] = ContextVar("hl_torch_transfer_batch"
 
 def _counted_to_host(tensors: list[torch.Tensor], batch: TransferBatch | None) -> list[torch.Tensor]:
     """Copy ``tensors`` to the host; one blocking wave is counted when
-    any of them lies on a CUDA device."""
-    if any(t.device.type == "cuda" for t in tensors):
+    any of them lies on a CUDA device, and its bytes go to the graph
+    cost ledger."""
+    on_card = [t for t in tensors if t.device.type == "cuda"]
+    if on_card:
         transfer_stats.record_blocking_get()
         if batch is not None:
             batch.blocking_gets += 1
+        _graphcost.note_transfer(sum(t.numel() * t.element_size() for t in on_card))
     return [t.cpu() for t in tensors]
 
 

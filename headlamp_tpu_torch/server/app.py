@@ -49,6 +49,14 @@ cold, and after the TTL a stale page is served at once while one
 background refit warm-starts from the process-wide carry
 (``runtime.device_cache.warm_carries``).
 
+:func:`serve` starts the process's program registry (``models/aot.py``)
+capturing every hot device program as a CUDA graph per bucket on a
+background thread; once it is ready the fits and rollups replay their
+graphs, and a warm refit with the published TPU view runs the rollup and
+the refinement as one fused replay whose rollup the overview then reads.
+``/healthz`` carries the graph cost ledger (``runtime.graphs``) and the
+registry (``runtime.aot``); a failed capture turns ``ok`` false.
+
 The gateway, push, replication, workers, SLOs, the fragment cache, the
 incident timeline and the pages not listed above are not part of this
 host; ``/healthz`` leaves out the keys of the JAX host's that describe
@@ -71,12 +79,15 @@ from urllib.parse import parse_qs, urlparse
 import torch
 
 from ..analytics import stats as rollup_stats
+from ..analytics.encode import _bucket
 from ..context.accelerator_context import AcceleratorDataContext, ClusterSnapshot
 from ..device import DeviceLike, resolve_device
 from ..history import HistoryStore, set_active_store
 from ..metrics.client import TpuMetricsSnapshot, fetch_tpu_metrics
+from ..models import aot
 from ..models.fused_forward import LAUNCHES, kernel_build_info
 from ..models.service import ForecastView, compute_forecast_incremental
+from ..obs import graphcost
 from ..obs.metrics import TEXT_CONTENT_TYPE
 from ..obs.metrics import registry as metrics_registry
 from ..obs.trace import annotate, span, trace_request, trace_ring
@@ -391,6 +402,13 @@ class DashboardApp:
         with self._lock:
             self._background_counters["warms"] += int(uploaded)
             self._warm_failing = False
+        # The buckets this fleet actually encodes to get both rollups
+        # captured in the background (a no-op before the registry's
+        # startup and for buckets it holds), off the request path.
+        aot.registry().ensure_rollup_shapes(
+            _bucket(max(len(state.view.nodes), 1)), _bucket(max(len(state.view.pods), 1)),
+            self._device,
+        )
 
     def _capture_metrics_store(self, key: Any, value: Any) -> None:
         """Refresher ``on_store`` hook: record each fetched metrics
@@ -526,12 +544,21 @@ class DashboardApp:
         handed), so it is stored back before the error propagates."""
         key = self._metrics_key(metrics)
         state = self._warm_forecast_states.take(key)
+        # The published TPU view: when the warm carry and a captured
+        # bucket line up, the rollup and the refinement run as one fused
+        # replay, and the overview's next fleet_stats reads its parked
+        # rollup.
+        snap = self._last_snapshot
+        tpu = snap.providers.get("tpu") if snap is not None else None
         try:
             # Once the history store holds a full training window, the
             # fit trains on captured history, with no range query.
             view, new_state = compute_forecast_incremental(
                 self._transport, metrics, state=state, clock=self._clock, device=self._device,
                 history_store=self.history,
+                fleet_view=tpu.view if tpu is not None else None,
+                fleet_cache=self._ctx.fleet_cache,
+                rollup_results=self._ctx.rollup_results,
             )
         except BaseException:
             if state is not None:
@@ -767,12 +794,17 @@ class DashboardApp:
         """The /healthz body. Never syncs and never waits on the sync
         lock: it reads the last published snapshot. ``ok`` is false after
         ``HEALTH_FAILURE_THRESHOLD`` failing syncs in a row, while the
-        background loop's snapshot is older than its wedged limit, or
-        while the last background warm failed. Ages run on the injected
-        monotonic clock."""
+        background loop's snapshot is older than its wedged limit, while
+        the last background warm failed, or once a capture of the
+        program registry failed. Ages run on the injected monotonic
+        clock."""
         snap = self._last_snapshot
         failures = self._sync_failures
-        ok = failures < self.HEALTH_FAILURE_THRESHOLD and not self._warm_failing
+        ok = (
+            failures < self.HEALTH_FAILURE_THRESHOLD
+            and not self._warm_failing
+            and aot.registry().compile_errors == 0
+        )
         background = self._background_live()
         health: dict[str, Any] = {"ok": ok, "loading": snap is None or snap.loading}
         if snap is not None:
@@ -824,7 +856,8 @@ class DashboardApp:
     def _runtime_health(self) -> dict[str, Any]:
         """The /healthz runtime block: device-to-host copies paid, the
         device-resident fleet columns, the warm carries, both
-        refreshers, the context's watch counters, the background loop,
+        refreshers, the graph cost ledger and the program registry, the
+        context's watch counters, the background loop,
         the history store, and the device with its kernel."""
         with self._lock:
             background = {
@@ -846,6 +879,8 @@ class DashboardApp:
             "refresh": {
                 r.name: r.snapshot() for r in (self._metrics_refresher, self._forecast_refresher)
             },
+            "graphs": graphcost.ledger().snapshot(),
+            "aot": aot.registry().snapshot(),
             "device": self._device_health(),
         }
 
@@ -900,6 +935,7 @@ class DashboardApp:
         self._ctx.close()
         self._warm_forecast_states.invalidate()
         self._ctx.fleet_cache.invalidate()
+        self._ctx.rollup_results.invalidate()
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
 
@@ -934,13 +970,22 @@ class DashboardServer:
         # ThreadingHTTPServer blocks on close: server_close joins every
         # request thread it started.
         self._httpd.server_close()
+        # The registry's captures serve() started (or a backfill): the
+        # graphs stay in the process registry, the threads end here.
+        if not aot.registry().join(timeout_s):
+            raise TimeoutError(f"the program registry's captures outlived {timeout_s} s")
         self.app.close(timeout_s)
 
 
 def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
     """Bind ``(host, port)`` (port 0 picks a free one) and serve ``app``
-    on a ``ThreadingHTTPServer``, one thread per request. Returns the
+    on a ``ThreadingHTTPServer``, one thread per request, and start the
+    process's program registry capturing its startup set on the app's
+    device on a background thread (`app.py:1745-1755` of the JAX host;
+    a no-op once started). Requests that arrive before it is ready run
+    their programs eagerly. Building an app never starts it. Returns the
     running server; its ``close()`` stops everything it started."""
+    aot.registry().compile_startup(app.device)
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self) -> None:  # noqa: N802 (http.server API)

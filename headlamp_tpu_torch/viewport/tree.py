@@ -174,19 +174,13 @@ def _device_sums(
     the two per-node id columns uploaded beside them, and one counted
     copy back."""
     from ..analytics.encode import encode_fleet
-    from ..analytics.fleet_torch import (
-        pack_region_rollup,
-        region_rollup_arrays,
-        unpack_region_rollup,
-    )
-    from ..runtime import transfer
+    from ..analytics.fleet_torch import region_rollup_host
 
     view = state.view
     cache = state.fleet_cache
     fleet = cache.fleet_for(view) if cache is not None else encode_fleet(view.nodes, view.pods)
     node_cluster, node_slice = _region_ids(fleet, cluster_id, slice_id, region_of, segments_limit)
-    out = region_rollup_arrays(fleet, node_cluster, node_slice, state.device)
-    host = unpack_region_rollup(transfer.fetch(pack_region_rollup(out)))
+    host = region_rollup_host(fleet, node_cluster, node_slice, state.device)
 
     def stats_at(prefix: str, idx: int) -> dict[str, int]:
         return {key: int(host[f"{prefix}_{key}"][idx]) for key in STAT_KEYS}

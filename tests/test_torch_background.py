@@ -27,6 +27,7 @@ from headlamp_tpu_torch.analytics import encode as encode_mod
 from headlamp_tpu_torch.analytics.stats import python_fleet_stats
 from headlamp_tpu_torch.domain.accelerator import classify_fleet
 from headlamp_tpu_torch.fleet import fixtures as tfx
+from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.obs.trace import trace_ring
 from headlamp_tpu_torch.runtime.device_cache import DeviceFleetCache
 from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
@@ -289,6 +290,9 @@ def test_requests_during_changed_ticks_serve_the_published_fleet():
 
 def test_close_and_the_entry_point_leave_no_thread(monkeypatch):
     before = set(threading.enumerate())
+    # The entry point's serve() starts the process's program registry: a
+    # fresh one for this test.
+    monkeypatch.setattr(aot, "_REGISTRY", aot.AotProgramRegistry())
     app, _t = _viewport_app()
     app.start_background_sync(0.02)
     _wait(lambda: _ticks(app) >= 2, "two ticks")

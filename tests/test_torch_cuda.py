@@ -207,9 +207,14 @@ def test_dashboard_host_round_trip_on_card(cuda):
     from headlamp_tpu_torch.runtime.device_cache import warm_carries
     from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
 
+    from headlamp_tpu_torch.models import aot
+
     warm_carries.invalidate()
     mono = [0.0]
     app = DashboardApp(make_demo_transport("v5e4"), device=cuda, monotonic=lambda: mono[0])
+    # serve() starts the process's program registry: a fresh one, restored
+    # after, so the later card tests keep their eager path.
+    previous = aot.set_registry(aot.AotProgramRegistry())
     server = app.serve("127.0.0.1", 0)
 
     def view():
@@ -229,6 +234,7 @@ def test_dashboard_host_round_trip_on_card(cuda):
         assert ff.LAUNCHES.n == before + 2 and view().inference_path == "cuda-warm"
     finally:
         server.close()
+        aot.set_registry(previous)
 
 
 def _tpu_view(n_nodes, version=None):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from headlamp_tpu.obs.metrics import registry as jax_registry
+from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.models import fused_forward as ff
 from headlamp_tpu_torch.obs.metrics import MetricRegistry
 from headlamp_tpu_torch.obs.metrics import registry as port_registry
@@ -218,8 +219,11 @@ def test_metrics_request_trace_and_healthz_runtime():
     runtime = health["runtime"]
     assert set(runtime) == {
         "transfer", "fleet_cache", "warm_carries", "refresh", "device",
-        "watch", "background", "history",
+        "watch", "background", "history", "graphs", "aot",
     }
+    # Building an app never starts the registry: the fit ran eagerly.
+    assert runtime["aot"]["state"] == aot.registry().state
+    assert runtime["graphs"]["programs"]["forecast.fit_forecast_state_program"]["eager"] >= 1
     assert runtime["history"]["scrapes"] == 1  # the metrics fetch was captured
     assert runtime["device"] == {
         "torch_device": "cpu", "kernel": "forecast_mlp_forward", "kernel_path": "torch",
@@ -239,8 +243,12 @@ def _get(url):
         return exc.code, exc.headers.get_content_type(), exc.read().decode()
 
 
-def test_socket_round_trip_leaves_no_thread_running():
+def test_socket_round_trip_leaves_no_thread_running(monkeypatch):
     before = set(threading.enumerate())
+    # serve() starts the process's program registry: a fresh one for this
+    # test, so the rest of the process keeps its eager path.
+    reg = aot.AotProgramRegistry()
+    monkeypatch.setattr(aot, "_REGISTRY", reg)
     warm_carries.invalidate()
     mono = [0.0]
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock,
@@ -260,9 +268,10 @@ def test_socket_round_trip_leaves_no_thread_running():
             assert resp.url == server.url + "/tpu" and resp.status == 200
     finally:
         server.close()
-    # Server, request and refit threads (other tests' threads aside).
+    # Server, request, refit and capture threads (other tests' threads aside).
     left = [t.name for t in set(threading.enumerate()) - before
-            if t.name.startswith(("hl-torch-serve", "refresh-", "Thread-"))]
+            if t.name.startswith(("hl-torch-serve", "hl-torch-aot", "refresh-", "Thread-"))]
     assert left == [] and len(warm_carries) == 0
+    assert reg.state == "ready" and reg.compile_errors == 0
     with pytest.raises(OSError):
         urllib.request.urlopen(server.url + "/healthz", timeout=5)
