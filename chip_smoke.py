@@ -26,8 +26,15 @@ sync with list+watch at ``fleet_viewport`` 1024 and 16384 nodes (quiet
 ticks that list, upload and copy nothing; a changed tick whose new
 version is warmed onto the card off the request path; 410 Gone), the
 history-first forecast through the kernel, and ``/tpu/trends`` over a
-4096-chip history with its statistics on the card. It exits non-zero at
-the first failure, and without CUDA or without the package beside it.
+4096-chip history with its statistics on the card. Then the program
+registry's CUDA graphs (its startup capture beside a request, the fused
+request, each bucket's replay against its eager program). Then the mesh
+over NCCL at world size 1: the multichip drill, the psum, ring and region
+rollups replayed and eager against the single-device rollups and their
+oracles, and the dp×tp train step against the unsharded one. Then record
+and replay: a recorded demo run of the host replayed twice, byte for
+byte. It exits non-zero at the first failure, and without CUDA or
+without the package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1293,6 +1300,8 @@ def registry_startup_phase(torch: Any, clock: Callable[[], float], smi: str) -> 
               f"the registry after startup: {snap}")
         captures = {name: (row["capture_ms"], row["signatures"])
                     for name, row in led.snapshot()["programs"].items() if row["captures"]}
+        check(snap["programs_compiled"] == 15 and "mesh.rollup" in captures,
+              f"the startup set is not 15 programs with the mesh rollup: {sorted(captures)}")
         out.update(ready_s=ready_s, capture_ms_total=snap["compile_ms_total"], captures=captures)
         print(f"aot: startup capture of {snap['programs_compiled']} programs ready in "
               f"{ready_s:.2f} s ({snap['compile_ms_total']} ms capturing) while a request thread "
@@ -1568,6 +1577,251 @@ def program_registry_phase(torch: Any, clock: Callable[[], float], smi: str) -> 
         host = registry_startup_phase(torch, clock, smi)
         launches, rows = registry_programs_phase(torch, smi)
     return host["launches"] + launches, [{"startup": host}] + rows
+
+
+def _region_stats(host: dict[str, Any], cluster_id: dict, slice_id: dict) -> tuple[list, list]:
+    """Per-cluster and per-slice stat dicts from a region rollup's host
+    vectors, read as ``viewport/tree.py``'s ``_device_sums`` reads them."""
+    from headlamp_tpu_torch.analytics.fleet_torch import REGION_CLUSTER_SEGMENTS
+    from headlamp_tpu_torch.viewport.tree import STAT_KEYS
+
+    def at(prefix: str, idx: int) -> dict[str, int]:
+        return {key: int(host[f"{prefix}_{key}"][idx]) for key in STAT_KEYS}
+
+    return ([at("cluster", min(cid, REGION_CLUSTER_SEGMENTS - 1)) for cid in range(len(cluster_id))],
+            [at("slice", sid) for sid in range(len(slice_id))])
+
+
+def mesh_phase(torch: Any, smi: str) -> tuple[int, list[dict[str, Any]]]:
+    """Step 15: the mesh over NCCL at world size 1. The multichip drill;
+    a registry of the mesh programs and the single-device rollups at the
+    1024 buckets, captured with 0 errors (each capture's ms printed); the
+    psum and ring rollups of fleet_large(1024) and both region rollups of
+    fleet_viewport(1024) on the process mesh, replayed and eager, exactly
+    equal to the single-device rollups and their Python oracles, with
+    host p50s in turns beside the single-device replay; the dp×tp train
+    step on a world-1 train mesh against the unsharded step. Returns the
+    forecast kernel's launches (0: the mesh launches none) and rows."""
+    import numpy as np
+
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.analytics.encode import encode_fleet
+    from headlamp_tpu_torch.analytics.fleet_torch import (
+        REGION_CLUSTER_SEGMENTS,
+        REGION_KEYS,
+        region_rollup_host,
+        rollup_to_dict,
+    )
+    from headlamp_tpu_torch.domain.accelerator import classify_fleet
+    from headlamp_tpu_torch.fleet import fleet_large, fleet_viewport
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models import forecast as tf
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import graphcost
+    from headlamp_tpu_torch.parallel import mesh as tmesh
+    from headlamp_tpu_torch.parallel.dryrun import dryrun_multichip
+    from headlamp_tpu_torch.viewport import tree as vt
+
+    dev = torch.device("cuda")
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(1, device="cuda")
+    check(line.startswith("dryrun_multichip ok: 1 devices;"), f"the drill: {line}")
+    print(f"mesh: dryrun_multichip(1, device='cuda') over NCCL in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    key = ((1024,), (1024,))
+    specs = [(aot.FLEET_ROLLUP, key), (aot.REGION_ROLLUP, key)] + [
+        (name, (reducer, (1,), *key))
+        for name in (tmesh.MESH_ROLLUP, tmesh.MESH_REGION_ROLLUP) for reducer in ("psum", "ring")]
+    reg, idle = aot.AotProgramRegistry(specs=specs), aot.AotProgramRegistry()
+    rows: list[dict[str, Any]] = []
+    with _Registry(reg, graphcost.GraphCostLedger()):
+        led = graphcost.ledger()
+        reg.compile_startup(dev, block=True)
+        snap = reg.snapshot()
+        check(snap["state"] == "ready" and snap["compile_errors"] == 0
+              and snap["programs_compiled"] == len(specs), f"the mesh registry: {snap}")
+        captures = {name: row["capture_ms"] for name, row in led.snapshot()["programs"].items()}
+        print(f"mesh: {len(specs)} programs captured with 0 errors (the mesh programs hold their "
+              f"NCCL all-reduce or ring inside the graph); capture ms {captures}; on {smi}")
+        rows.append({"captures_ms": captures})
+        mesh = tmesh.fleet_mesh(dev)
+        check(mesh.size == 1 and tmesh._backend_of(mesh.group) == "nccl", f"process mesh {mesh}")
+
+        f = fleet_large(1024)
+        view = classify_fleet(f["nodes"], f["pods"])["tpu"]
+        arrays = encode_fleet(view.nodes, view.pods)
+        oracle = stats.python_fleet_stats(view)
+        v = fleet_viewport(1024)
+        vview = classify_fleet(v["nodes"], v["pods"])["tpu"]
+        varrays = encode_fleet(vview.nodes, vview.pods)
+        region_of, _, _, cluster_id, slice_id = vt._assignments(vview.nodes)
+        ids = vt._region_ids(varrays, cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS)
+
+        class _State:  # what _host_sums reads of a provider state
+            nodes, pods = vview.nodes, vview.pods
+
+        region_oracle = vt._host_sums(_State, cluster_id, slice_id, region_of,
+                                      REGION_CLUSTER_SEGMENTS)
+        calls = {
+            "fleet rollup (single device), fleet_large 1024": (
+                aot.FLEET_ROLLUP, lambda: rollup_to_dict(arrays, dev)),
+            "sharded_rollup (psum), fleet_large 1024": (
+                tmesh.MESH_ROLLUP, lambda: tmesh.sharded_rollup(arrays, mesh)),
+            "ring_rollup, fleet_large 1024": (
+                tmesh.MESH_ROLLUP, lambda: tmesh.ring_rollup(arrays, mesh)),
+            "region rollup (single device), fleet_viewport 1024": (
+                aot.REGION_ROLLUP, lambda: region_rollup_host(varrays, *ids, dev)),
+            "region_sharded_rollup (psum), fleet_viewport 1024": (
+                tmesh.MESH_REGION_ROLLUP,
+                lambda: tmesh.region_sharded_rollup(varrays, *ids, mesh)),
+            "region_sharded_rollup (ring), fleet_viewport 1024": (
+                tmesh.MESH_REGION_ROLLUP,
+                lambda: tmesh.region_sharded_rollup(varrays, *ids, mesh, "ring")),
+        }
+        single: dict[str, Any] = {}
+        for label, (name, call) in calls.items():
+            results = {}
+            for kind in ("replay", "eager"):
+                before = led.snapshot()["programs"][name]
+                with _Registry(reg if kind == "replay" else idle):
+                    results[kind] = call()
+                after = led.snapshot()["programs"][name]
+                ran = "replays" if kind == "replay" else "eager"
+                check(after[ran] == before[ran] + 1, f"{label} {kind}: {before} -> {after}")
+            got, eager = results["replay"], results["eager"]
+            if name in (aot.FLEET_ROLLUP, tmesh.MESH_ROLLUP):
+                same = got == eager and all(got[k] == oracle[k] for k in got
+                                            if k not in ("generation_counts",))
+                if name == aot.FLEET_ROLLUP:
+                    single["fleet"] = got
+                else:
+                    same = same and got == {k: single["fleet"][k] for k in got}
+            else:
+                same = all(np.array_equal(got[k], eager[k]) for k in REGION_KEYS) and (
+                    _region_stats(got, cluster_id, slice_id) == region_oracle)
+                if name == aot.REGION_ROLLUP:
+                    single["region"] = got
+                else:
+                    same = same and all(np.array_equal(got[k], single["region"][k])
+                                        for k in REGION_KEYS)
+            check(same, f"{label}: replay, eager, single device and oracle disagree")
+            samples: dict[str, list[float]] = {"replay": [], "eager": []}
+            for _ in range(5):
+                for kind in ("replay", "eager", "eager", "replay"):
+                    with _Registry(reg if kind == "replay" else idle):
+                        t0 = time.perf_counter()
+                        call()
+                        samples[kind].append((time.perf_counter() - t0) * 1e3)
+            row = {"program": label, "replay_ms": statistics.median(samples["replay"]),
+                   "eager_ms": statistics.median(samples["eager"])}
+            rows.append(row)
+            print(f"mesh: {label}: equal to the single-device rollup and the oracle, replayed and "
+                  f"eager; host p50 replay {row['replay_ms']:.3f} ms, eager {row['eager_ms']:.3f} "
+                  f"ms (one copy each, 10 calls each in turns); on {smi}")
+
+    # The dp×tp train step on a world-1 train mesh against the unsharded step.
+    (train,) = tmesh.local_train_meshes(1, dev)
+    try:
+        cfg = tf.ForecastConfig()
+        params = tf.init_params(torch.Generator().manual_seed(1), cfg, device=dev)
+        x, y = tf.make_windows(tf.synthetic_telemetry(64, 61, device=dev), cfg.window, cfg.horizon)
+        plain_step, sharded_step = tf.make_train_step(cfg), tf.make_sharded_train_step(cfg, train)
+        shards = tf.shard_params(params, train)
+        want = plain_step(params, tf.adam_init(params), x, y)
+        got = sharded_step(shards, tf.adam_init(shards), tf.batch_block(x, train),
+                           tf.batch_block(y, train))
+        torch.cuda.synchronize()
+        loss_diff = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
+        param_diff = max(float((got[0][k] - want[0][k]).abs().max()) for k in tf.PARAM_NAMES)
+        check(loss_diff <= 1e-5 and param_diff <= 1e-4 and math.isfinite(float(got[2])),
+              f"the dp×tp step vs the unsharded step: loss {loss_diff}, params {param_diff}")
+
+        def timed(step: Callable[[], Any]) -> float:
+            return p50_ms(lambda: (step(), torch.cuda.synchronize()), 21)
+
+        plain_ms = timed(lambda: plain_step(params, tf.adam_init(params), x, y))
+        sharded_ms = timed(lambda: sharded_step(shards, tf.adam_init(shards), x, y))
+    finally:
+        train.close()
+    rows.append({"program": "train step, 64 chips x 61 samples", "sharded_ms": sharded_ms,
+                 "unsharded_ms": plain_ms, "loss_rel_diff": loss_diff, "param_abs_diff": param_diff})
+    print(f"mesh: dp×tp train step (data 1 x model 1, NCCL) on {x.shape[0]} windows: loss "
+          f"{float(got[2]):.6g}, vs the unsharded step loss rel diff {loss_diff:.3e} (tol 1e-5), "
+          f"params max abs diff {param_diff:.3e} (tol 1e-4); host p50 sharded {sharded_ms:.3f} ms, "
+          f"unsharded {plain_ms:.3f} ms; on {smi}")
+    check(LAUNCHES.n == 0, f"the mesh launched the forecast kernel {LAUNCHES.n} times")
+    return LAUNCHES.n, rows
+
+
+def record_replay_phase(torch: Any, smi: str) -> int:
+    """Step 16: a demo run of the port's host on the card at --demo
+    large, recorded through RecordingTransport on scripted clocks, then
+    replayed twice through fresh apps over a ReplaySource: every page's
+    <main> bytes identical across the replays and to the recorded run.
+    Returns the forecast kernel's launches (0: no page here forecasts)."""
+    import tempfile
+
+    from headlamp_tpu_torch.history import Recorder, RecordingTransport, ReplaySource, load_recording
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    pages = ("/tpu", "/tpu/nodes", "/tpu/pods", "/tpu/deviceplugins", "/tpu/fleet",
+             "/tpu/topology", "/nodes")
+    wall0 = 1_700_000_000.0
+
+    class Clock:
+        def __init__(self, now: float) -> None:
+            self.now = now
+
+        def __call__(self) -> float:
+            return self.now
+
+    def paint(transport: Any) -> dict[str, str]:
+        mono, wall = Clock(1000.0), Clock(wall0)
+        app = DashboardApp(transport, device="cuda", min_sync_interval_s=0.0, clock=wall,
+                           monotonic=mono)
+        try:
+            out = {}
+            for path in pages:
+                status, _, body = app.handle(path)
+                check(status == 200, f"{path} in a replay round: {status}")
+                out[path] = re.search(r"<main>(.*)</main>", body, re.S).group(1)
+                mono.now += 61.0
+                wall.now += 61.0
+            return out
+        finally:
+            app.close()
+
+    LAUNCHES.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "demo.jsonl"
+        t0 = time.perf_counter()
+        with open(path, "w", encoding="utf-8") as sink:
+            recorder = Recorder(sink, monotonic=lambda: 0.0, wall=lambda: wall0, note="chip smoke")
+            live = paint(RecordingTransport(make_demo_transport("large"), recorder))
+        record_ms = (time.perf_counter() - t0) * 1e3
+        recording = load_recording(str(path))
+        size = path.stat().st_size
+    rounds, round_ms = [], []
+    for _ in range(2):
+        source = ReplaySource(recording)
+        t0 = time.perf_counter()
+        rounds.append(paint(source))
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        check(source.requests_unknown == 0 and source.requests_served == recorder.exchanges,
+              f"a replay round served {source.requests_served} of {recorder.exchanges} exchanges, "
+              f"{source.requests_unknown} unknown")
+    check(rounds[0] == rounds[1] == live, "the replay rounds' pages differ from each other or "
+          "from the recorded run")
+    check("Chip Allocation" in live["/tpu"], "the recorded /tpu has no allocation")
+    print(f"record: --demo large on the card, {len(pages)} pages: {recorder.exchanges} exchanges "
+          f"({size} bytes) recorded in {record_ms:.1f} ms; two sequential replays "
+          f"({round_ms[0]:.1f}, {round_ms[1]:.1f} ms) paint <main> bytes identical to each other "
+          f"and to the recorded run; 0 unknown paths; on {smi}")
+    check(LAUNCHES.n == 0, f"the replayed pages launched the kernel {LAUNCHES.n} times")
+    return LAUNCHES.n
 
 
 def re_cursor(body: str) -> str:
@@ -1850,6 +2104,16 @@ def main() -> int:
     # 14. The program registry: the startup capture beside a request, the
     #     fused request, every bucket's replay against its eager program.
     registry_launches, registry_rows = program_registry_phase(torch, clock, smi)
+
+    # 15. The mesh: the multichip drill, the world-1 NCCL rollups against
+    #     the single-device rollups (replayed and eager), the dp×tp step.
+    mesh_launches, mesh_rows = mesh_phase(torch, smi)
+
+    # 16. Record and replay: a recorded demo run replayed twice.
+    replay_launches = record_replay_phase(torch, smi)
+    from headlamp_tpu_torch.parallel import close_process_meshes
+
+    close_process_meshes()
     print(json.dumps({"device_programs": [
         {"name": "fleet_rollup", "route": "torch ops",
          "replaces": "headlamp_tpu/analytics/fleet_jax.py:98", "by_nodes": fleet_rows},
@@ -1859,6 +2123,8 @@ def main() -> int:
          "replaces": "headlamp_tpu/analytics/trends.py:15", "by_series": trend_rows},
         {"name": "program_registry", "route": "cuda graphs",
          "replaces": "headlamp_tpu/models/aot.py:332", "rows": registry_rows},
+        {"name": "mesh", "route": "nccl collectives, cuda graphs",
+         "replaces": "headlamp_tpu/parallel/mesh.py:70", "rows": mesh_rows},
     ]}))
 
     # 8. The record.
@@ -1870,7 +2136,8 @@ def main() -> int:
         "source": "headlamp_tpu_torch/kernels/forecast_mlp.cu",
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
         "launches": (page_launches + scale_launches + one_launches + serve_launches
-                     + cluster_launches + viewport_launches + live_launches + registry_launches),
+                     + cluster_launches + viewport_launches + live_launches + registry_launches
+                     + mesh_launches + replay_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -1878,7 +2145,9 @@ def main() -> int:
                              "cluster_dashboard": cluster_launches,
                              "fleet_drilldown": viewport_launches,
                              "live_host": live_launches,
-                             "program_registry": registry_launches},
+                             "program_registry": registry_launches,
+                             "mesh": mesh_launches,
+                             "record_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -300,20 +300,26 @@ def local_region_aggregates(
     *,
     n_nodes_pad: int,
     n_clusters: int = REGION_CLUSTER_SEGMENTS,
+    cluster_ext: torch.Tensor | None = None,
+    slice_ext: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Per-region sums for both drill-down levels (`fleet_jax.py:162-239`):
     cluster vectors [n_clusters] and slice vectors [n_nodes_pad]. Pods
     reach their region through their node's ids, the id columns extended
     by one sentinel row that the encoder's padding index
     (``n_nodes_pad``, "no node") selects; the sentinel segment is sliced
-    off."""
+    off. The sharded mesh rollup passes replicated full-fleet extended
+    columns, since ``pod_node_idx`` is a global row index that a rank's
+    node block cannot answer; the single-device rollup leaves them None."""
     cluster = node_cluster.clamp(0, n_clusters - 1) * node_valid
     slc = node_slice * node_valid
     running = ((pod_phase == _RUNNING) & (pod_valid == 1)).to(torch.int32)
     pending = ((pod_phase == _PENDING) & (pod_valid == 1)).to(torch.int32)
     req_running = pod_request * running
-    cluster_ext = torch.cat([cluster, cluster.new_full((1,), n_clusters)])
-    slice_ext = torch.cat([slc, slc.new_full((1,), n_nodes_pad)])
+    if cluster_ext is None:
+        cluster_ext = torch.cat([cluster, cluster.new_full((1,), n_clusters)])
+    if slice_ext is None:
+        slice_ext = torch.cat([slc, slc.new_full((1,), n_nodes_pad)])
     pod_cluster = cluster_ext.index_select(0, pod_node_idx)
     pod_slice = slice_ext.index_select(0, pod_node_idx)
 

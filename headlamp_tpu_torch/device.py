@@ -24,3 +24,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def canonical_device(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device` with the card's index: ``cuda`` names the
+    current card, so what was keyed by ``cuda`` is found from a tensor
+    on ``cuda:0``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

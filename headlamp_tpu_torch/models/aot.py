@@ -5,9 +5,10 @@ compiles each hot program at ``serve()`` startup, once per canonical
 bucket shape, so no request pays a compile. On the card the counterpart
 is a CUDA graph: at startup a background thread captures each program
 (the fleet and region rollups, the cold and warm bucketed fits, the fused
-rollup+forecast) once at its bucket shape with static input and output
-buffers, and requests replay it. A replay launches the whole program
-(about 130 kernels per Adam step for a fit) with one host call. Each
+rollup+forecast, the mesh rollup with its collective) once at its bucket
+shape with static input and output buffers, and requests replay it. A
+replay launches the whole program (about 130 kernels per Adam step for a
+fit) with one host call. Each
 capture is tracked in the graph cost ledger (``obs/graphcost.py``) with
 ``phase="startup"`` under the exact ``(program, signature)`` that the
 request path replays, so ``request_captures()`` stays 0 once the
@@ -56,9 +57,17 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, canonical_device as _canonical
 from ..obs import graphcost
 from ..obs.metrics import registry as _metrics_registry
+from ..parallel.mesh import (
+    MESH_REGION_ROLLUP,
+    MESH_ROLLUP,
+    build_region_rollup_shard,
+    build_rollup_shard,
+    fleet_mesh,
+    process_mesh_size,
+)
 from .forecast import (
     COLD_PROGRAM,
     PARAM_NAMES,
@@ -107,7 +116,8 @@ LIVE_WINDOW_SAMPLES = 61
 #: Steady-state length of the SLO burn self-forecast's series.
 SLO_SERIES_STEADY = 512
 
-#: Registry names of the rollups and the fused program (JAX's names).
+#: Registry names of the rollups and the fused program (JAX's names);
+#: the mesh programs' names live beside their bodies in ``parallel.mesh``.
 FLEET_ROLLUP = "analytics.fleet_rollup"
 REGION_ROLLUP = "analytics.region_rollup"
 FUSED_PROGRAM = "fused.rollup_and_forecast"
@@ -116,16 +126,6 @@ FUSED_PROGRAM = "fused.rollup_and_forecast"
 #: configuration, cuBLAS's workspace and autograd's buffers must all
 #: exist before the capture begins.
 WARMUP_RUNS = 3
-
-
-def _canonical(device: DeviceLike) -> torch.device:
-    """``device`` with its index: ``cuda`` names the current card, so a
-    lookup from a tensor on ``cuda:0`` finds what was captured for
-    ``cuda``."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def chip_bucket_for(n_chips: int) -> int | None:
@@ -146,12 +146,14 @@ def _pow2_bucket(n: int, minimum: int = 8) -> int:
 
 
 def default_specs() -> list[tuple[str, Any]]:
-    """The startup set, JAX's without its mesh rollup (the port has
-    no mesh yet): both rollups at every rollup bucket, the cold and warm
-    fits at the page's (64, 61) and the SLO forecast's (8, 512), the
-    fused program at the fused buckets. A forecast key is ``(bucket,
-    length, cfg, steps)``: JAX's key without its inference path and
-    Pallas batch, since the port has one inference path per device."""
+    """The startup set, JAX's (`aot.py:262-292`): both rollups at every
+    rollup bucket, the cold and warm fits at the page's (64, 61) and the
+    SLO forecast's (8, 512), the fused program at the fused buckets, and
+    the psum mesh rollup at (256, 256) on the process's fleet mesh, whose
+    size is the launched default group's world size, else 1. A forecast
+    key is ``(bucket, length, cfg, steps)``: JAX's key without its
+    inference path and Pallas batch, since the port has one inference
+    path per device."""
     cfg = ForecastConfig()
     specs: list[tuple[str, Any]] = []
     for node, pod in ROLLUP_BUCKETS:
@@ -164,6 +166,7 @@ def default_specs() -> list[tuple[str, Any]]:
         specs.append(
             (FUSED_PROGRAM, ((node,), (pod,), 64, LIVE_WINDOW_SAMPLES, cfg, WARM_STEPS))
         )
+    specs.append((MESH_ROLLUP, ("psum", (process_mesh_size(),), (256,), (256,))))
     return specs
 
 
@@ -338,6 +341,41 @@ def _build_fused(key: Any, device: torch.device) -> Program:
     return _program(fn, cols + _fit_inputs(bucket, length, cfg, device, warm=True))
 
 
+def _mesh_for(key: Any, device: torch.device) -> tuple[Any, str, int, int]:
+    """The process's fleet mesh on ``device`` for a mesh program's key
+    ``(reducer, (size,), (node_pad,), (pod_pad,))``, checked against it
+    (`aot.py:193-205`), with the key's reducer and padded lengths."""
+    reducer, dev_shape, node_shape, pod_shape = key
+    mesh = fleet_mesh(device)
+    if (mesh.size,) != tuple(dev_shape):
+        raise ValueError(f"mesh size ({mesh.size},) != spec {tuple(dev_shape)}")
+    node_pad, pod_pad = int(node_shape[0]), int(pod_shape[0])
+    if node_pad % mesh.size or pod_pad % mesh.size:
+        raise ValueError(f"columns {node_pad}, {pod_pad} do not split over {mesh.size} ranks")
+    return mesh, reducer, node_pad, pod_pad
+
+
+def _build_mesh_rollup(key: Any, device: torch.device) -> Program:
+    """The rank's sharded rollup (``parallel.mesh.build_rollup_shard``)
+    over its row blocks of the key's columns. On the card the collective
+    is captured in the graph: the warm-up's eager runs bring the NCCL
+    communicator up first, which a capture cannot do."""
+    mesh, reducer, node_pad, pod_pad = _mesh_for(key, device)
+    inputs = (_columns((node_pad // mesh.size,), 5, mesh.device)
+              + _columns((pod_pad // mesh.size,), 4, mesh.device))
+    return _program(build_rollup_shard(mesh, reducer, node_pad), inputs)
+
+
+def _build_mesh_region_rollup(key: Any, device: torch.device) -> Program:
+    """The rank's sharded region rollup over six node blocks, the two
+    replicated extended id columns and four pod blocks."""
+    mesh, reducer, node_pad, pod_pad = _mesh_for(key, device)
+    inputs = (_columns((node_pad // mesh.size,), 6, mesh.device)
+              + _columns((node_pad + 1,), 2, mesh.device)
+              + _columns((pod_pad // mesh.size,), 4, mesh.device))
+    return _program(build_region_rollup_shard(mesh, reducer, node_pad), inputs)
+
+
 def _build_kernel(device: torch.device) -> None:
     """Build (or load) the forecast kernel's library before a capture
     that holds the kernel: nvcc runs once, outside every capture."""
@@ -353,6 +391,8 @@ _BUILDERS: dict[str, Callable[[Any, torch.device], Program]] = {
     COLD_PROGRAM: lambda key, device: _build_forecast(COLD_PROGRAM, key, device),
     WARM_PROGRAM: lambda key, device: _build_forecast(WARM_PROGRAM, key, device),
     FUSED_PROGRAM: _build_fused,
+    MESH_ROLLUP: _build_mesh_rollup,
+    MESH_REGION_ROLLUP: _build_mesh_region_rollup,
 }
 
 

@@ -256,6 +256,155 @@ def _train(
 
 
 # ---------------------------------------------------------------------------
+# One train step, and its dp×tp layout (`forecast.py:70-118`)
+# ---------------------------------------------------------------------------
+
+def _adam_step(
+    params: Params, grads: Params, opt_state: AdamState, cfg: ForecastConfig
+) -> tuple[Params, AdamState]:
+    """One Adam step on copies of ``params`` and ``opt_state``."""
+    new = {name: t.detach().clone() for name, t in params.items()}
+    state = _clone_adam(opt_state, next(iter(new.values())).device)
+    adam_update_(new, grads, state, cfg.learning_rate)
+    return new, state
+
+
+def make_train_step(cfg: ForecastConfig) -> Any:
+    """``train_step(params, opt_state, x, y) -> (params, opt_state,
+    loss)``: one Adam step on the batch's mean squared error, with the
+    loss at the params given, as JAX's ``value_and_grad`` step returns
+    it. The inputs are copied, never modified."""
+    def train_step(
+        params: Params, opt_state: AdamState, x: torch.Tensor, y: torch.Tensor
+    ) -> tuple[Params, AdamState, torch.Tensor]:
+        live = {name: t.detach().requires_grad_() for name, t in params.items()}
+        with torch.enable_grad():
+            loss = loss_fn(live, x, y)
+            grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+        return (*_adam_step(params, grads, opt_state, cfg), loss.detach())
+
+    return train_step
+
+
+def shard_params(params: Params, mesh: Any) -> Params:
+    """This rank's shards over the train mesh's ``model`` axis
+    (``param_shardings``): ``w1`` by columns, ``b1`` alike, ``w2`` by
+    rows; ``w3``, ``b2`` and ``b3`` replicated. Copies on the mesh's
+    device."""
+    m, size = mesh.model.rank, mesh.model.size
+    hidden = params["w1"].shape[1]
+    if hidden % size:
+        raise ValueError(f"hidden {hidden} does not split over model={size}")
+    cols = slice(m * hidden // size, (m + 1) * hidden // size)
+    split = {"w1": params["w1"][:, cols], "b1": params["b1"][cols], "w2": params["w2"][cols, :]}
+    return {name: split.get(name, params[name]).to(mesh.device, torch.float32).contiguous()
+            for name in PARAM_NAMES}
+
+
+def gather_params(shards: Params, mesh: Any) -> Params:
+    """The full params from every ``model`` rank's shards (the inverse of
+    :func:`shard_params`), on every rank."""
+    from ..parallel.mesh import all_gather
+
+    full = {"w1": all_gather(shards["w1"], mesh.model, dim=1),
+            "b1": all_gather(shards["b1"], mesh.model),
+            "w2": all_gather(shards["w2"], mesh.model)}
+    return {name: full.get(name, shards[name]) for name in PARAM_NAMES}
+
+
+def batch_block(t: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """This rank's rows of a batch split over the ``data`` axis
+    (``batch_sharding``): the batch must divide evenly."""
+    rows, size = t.shape[0], mesh.data.size
+    if rows % size:
+        raise ValueError(f"batch {rows} does not split over data={size}")
+    block = rows // size
+    return t[mesh.data.rank * block : (mesh.data.rank + 1) * block].to(mesh.device).contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``model``
+    (each model rank saw the input through its own shard)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, mesh: Any) -> torch.Tensor:
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple[torch.Tensor, None]:
+        from ..parallel.mesh import all_reduce_
+
+        return all_reduce_(grad.contiguous().clone(), ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum of every ``model`` rank's partial product forward; the
+    gradient passes through to each rank's partial unchanged."""
+
+    @staticmethod
+    def forward(ctx: Any, partial: torch.Tensor, mesh: Any) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce_
+
+        return all_reduce_(partial.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple[torch.Tensor, None]:
+        return grad, None
+
+
+#: The weights, whose matmul operands are bf16-rounded.
+_WEIGHTS = ("w1", "w2", "w3")
+
+
+def _sharded_forward(ops: Params, x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """:func:`forward` with the hidden layer split over ``model``
+    (Megatron's pairing), on operands whose weights are already
+    bf16-rounded: ``gelu(x @ w1ₛ + b1ₛ)``, a partial ``@ w2ₛ``, one
+    all-reduce, then ``+ b2``, GELU, ``@ w3 + b3`` and the sigmoid, with
+    f32 products and sums, as ``_dense_bf16``."""
+    x = _bf16_operand(_CopyToModel.apply(x, mesh.model))
+    h = F.gelu(x @ ops["w1"] + ops["b1"], approximate="tanh")
+    partial = _bf16_operand(h) @ ops["w2"]
+    h = F.gelu(_ReduceFromModel.apply(partial, mesh.model) + ops["b2"], approximate="tanh")
+    return torch.sigmoid(_bf16_operand(h) @ ops["w3"] + ops["b3"])
+
+
+def make_sharded_train_step(cfg: ForecastConfig, mesh: Any) -> Any:
+    """The dp×tp step on a :class:`~..parallel.mesh.TrainMesh`:
+    ``step(shards, opt_state, x_block, y_block) -> (shards, opt_state,
+    loss)`` with this rank's param shards (:func:`shard_params`), Adam
+    state and batch rows (:func:`batch_block`). The loss at the params
+    given is the global batch's mean, as JAX's is: the gradients with
+    respect to the bf16-rounded operands and the biases are summed over
+    ``data`` in one packed all-reduce and divided by its size, and only
+    then pass the operands' rounding (the bf16 cast's backward), where
+    XLA's partitioned program reduces them. Adam is elementwise, so each
+    rank updates its own shards. The plain forward, as JAX's ``loss_fn``:
+    no kernel launches here."""
+    from ..parallel.mesh import all_reduce_
+
+    def step(
+        shards: Params, opt_state: AdamState, x: torch.Tensor, y: torch.Tensor
+    ) -> tuple[Params, AdamState, torch.Tensor]:
+        ops = {name: (_bf16_operand(t) if name in _WEIGHTS else t).detach().requires_grad_()
+               for name, t in shards.items()}
+        with torch.enable_grad():
+            local = torch.mean((_sharded_forward(ops, x, mesh) - y) ** 2)
+            partial = torch.autograd.grad(local, list(ops.values()))
+        flat = torch.cat([local.detach().reshape(1)] + [g.reshape(-1) for g in partial])
+        all_reduce_(flat, mesh.data).div_(mesh.data.size)
+        grads, at = {}, 1
+        for name, g in zip(ops, partial):
+            value = flat[at : at + g.numel()].view_as(g)
+            grads[name] = _bf16_operand(value) if name in _WEIGHTS else value
+            at += g.numel()
+        return (*_adam_step(shards, grads, opt_state, cfg), flat[0].clone())
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # Fit + forecast entry points
 # ---------------------------------------------------------------------------
 

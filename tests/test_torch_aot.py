@@ -190,7 +190,14 @@ def test_a_replay_that_raises_is_counted_and_answers_500(fresh, monkeypatch):
 
 
 def test_default_specs_equal_jax_without_the_mesh_entries():
-    jax_specs = [(n, k) for n, k in jax_aot.default_specs() if not n.startswith("mesh.")]
+    # The mesh entries differ in their mesh size alone: JAX's is its
+    # device count, the port's the process's fleet mesh's (1 unless a
+    # group was launched).
+    jax_all = jax_aot.default_specs()
+    jax_specs = [(n, k) for n, k in jax_all if not n.startswith("mesh.")]
+    port_mesh = [(n, k) for n, k in aot.default_specs() if n.startswith("mesh.")]
+    assert port_mesh == [(n, (k[0], (1,), *k[2:])) for n, k in jax_all if n.startswith("mesh.")]
+    assert port_mesh == [("mesh.rollup", ("psum", (1,), (256,), (256,)))]
 
     def port_form(name, key):
         if name.startswith("forecast."):  # the port keys no inference path
@@ -211,8 +218,8 @@ def test_default_specs_equal_jax_without_the_mesh_entries():
             return name, (node, pod, bucket, length, dataclasses.asdict(cfg), steps)
         return name, key
 
-    assert [cfg_form(*s) for s in aot.default_specs()] == [port_form(*s) for s in jax_specs]
-    assert len(aot.default_specs()) == len(jax_specs) == 14
+    assert [cfg_form(*s) for s in aot.default_specs()[:-1]] == [port_form(*s) for s in jax_specs]
+    assert len(aot.default_specs()) == len(jax_all) == 15
     for name in ("CHIP_BUCKETS", "ROLLUP_BUCKETS", "FUSED_BUCKETS", "VIEWPORT_FLEET_SIZES",
                  "LIVE_WINDOW_SAMPLES", "SLO_SERIES_STEADY"):
         assert getattr(aot, name) == getattr(jax_aot, name), name
