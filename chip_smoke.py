@@ -33,7 +33,10 @@ over NCCL at world size 1: the multichip drill, the psum, ring and region
 rollups replayed and eager against the single-device rollups and their
 oracles, and the dp×tp train step against the unsharded one. Then record
 and replay: a recorded demo run of the host replayed twice, byte for
-byte. It exits non-zero at the first failure, and without CUDA or
+byte. Then telemetry: the host's SLO engine fits its own scrape→paint
+series on the card as a replay of the registry's 8×512 graph, and its
+exemplars, flight recorder, profiler, generation ledger and debug pages
+are checked over the socket. It exits non-zero at the first failure, and without CUDA or
 without the package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -157,6 +160,13 @@ STATS_ATOL = 1e-6
 #: FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data
 #: sheet); the statistics reduce in float64.
 FP64_FLOP_PER_S = 34e12
+#: The telemetry step: /tpu/metrics paints that fill the scrape→paint
+#: series past the SLO bucket's 512 points; the budget fit's card-vs-CPU
+#: bound (the 60-step fit's on 64 synthetic chips, ROADMAP Queue 3); the
+#: non-bucket series length its eager fit is timed at.
+TELEMETRY_PAINTS = 540
+TELEMETRY_FIT_TOL = 5e-2
+TELEMETRY_EAGER_POINTS = 500
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -1824,6 +1834,275 @@ def record_replay_phase(torch: Any, smi: str) -> int:
     return LAUNCHES.n
 
 
+def _slo_bench() -> dict[str, float]:
+    """The SLO engine's, the exemplars' and the flight recorder's host
+    costs, as bench.py's bench_slo defines them (`bench.py:951-1039`):
+    the three calls a request adds to the engine (latency feed, status
+    feed, violation check) on a scratch engine; a traced histogram
+    observe with the exemplar source installed minus the same without;
+    the resident size of a full flight ring of representative events."""
+    from headlamp_tpu_torch.obs import exemplars
+    from headlamp_tpu_torch.obs.flight import FlightRecorder, wide_event
+    from headlamp_tpu_torch.obs.metrics import Histogram
+    from headlamp_tpu_torch.obs.slo import REQUEST_DURATION, REQUESTS_TOTAL, SLOEngine
+    from headlamp_tpu_torch.obs.trace import trace_request
+
+    n = 5000
+    engine = SLOEngine(device="cuda")
+    latency_labels, status_labels = {"route": "/tpu"}, {"route": "/tpu", "status": "200"}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.feed_latency(REQUEST_DURATION, 0.012, latency_labels)
+        engine.feed_error(REQUESTS_TOTAL, 1, status_labels)
+        engine.violations("/tpu", 0.012, 200)
+    per_request_us = (time.perf_counter() - t0) / n * 1e6
+
+    hist = Histogram("headlamp_tpu_torch_smoke_scratch_seconds", "scratch")
+
+    def observe_ns() -> float:
+        with trace_request("/smoke-exemplar"):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                hist.observe(0.012)
+            return (time.perf_counter() - t0) / n * 1e9
+
+    try:
+        with_ns = observe_ns()
+        exemplars.uninstall()
+        without_ns = observe_ns()
+    finally:
+        exemplars.install()
+
+    ring = FlightRecorder()
+    event = wide_event(
+        path="/tpu/metrics?window=1h", route="/tpu/metrics", status=200, duration_s=0.137,
+        trace={"trace_id": "deadbeef00112233", "spans": [
+            {"name": "sync.snapshot", "duration_ms": 12.0, "children": []},
+            {"name": "metrics.fanout", "duration_ms": 80.0, "children": []},
+            {"name": "render.html", "duration_ms": 9.0, "children": []},
+        ]},
+        counters_before={"transport.reused": 10, "cache.hits": 5},
+        counters_after={"transport.reused": 14, "cache.hits": 6},
+    )
+    for _ in range(ring.capacity):
+        ring.record(dict(event))
+    for _ in range(ring.pinned_capacity):
+        ring.record(dict(event, slo_violations=["scrape_paint"]), pinned=True)
+    return {
+        "slo_eval_overhead_us_per_request": per_request_us,
+        "exemplar_overhead_ns_per_observe": with_ns - without_ns,
+        "flight_ring_memory_kb": ring.memory_bytes() / 1024,
+    }
+
+
+def telemetry_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 17: telemetry beyond spans. The host at --demo large on the
+    card, started with serve() under a fresh SLO engine: dashboard pages
+    and TELEMETRY_PAINTS /tpu/metrics paints over the socket (each paint
+    feeds the scrape→paint objective and its history mirror), the
+    profiler bursting, and one request failed by an injected sync error.
+    Then /sloz is polled until the budget forecast leaves fit_pending:
+    no fit_failed, the fit replayed the (8, 512) graph with no eager run
+    (the ledger's slo.burn_forecast row), the kernel launched on that
+    path, its output equal to its plain version on the fitted params and
+    the predictions within TELEMETRY_FIT_TOL of the port's CPU fit on the
+    same series. /metricsz's OpenMetrics exemplars name traces in
+    /debug/traces, /debug/flightz pins the failed request, /debug/profilez
+    attributes samples to the routes driven, /debug/generationz shows each
+    generation's sync→paint stamps and every HTML page answers 200.
+    Prints the host's own numbers. Returns the kernel's launches on the
+    SLO path and a device_programs row."""
+    import numpy as np
+
+    from headlamp_tpu_torch.models import aot, service
+    from headlamp_tpu_torch.models.forecast import COLD_PROGRAM, ForecastConfig
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES, forecast_forward_reference
+    from headlamp_tpu_torch.obs import flight, graphcost, slo
+    from headlamp_tpu_torch.obs.profiler import profiler
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    costs = _slo_bench()
+    engine = slo.SLOEngine()
+    previous_engine = slo.set_engine(engine)
+    flight.flight_recorder.clear()
+    cfg = ForecastConfig()
+    reg, led = aot.registry(), graphcost.ledger()
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock)
+    check(engine.history_store is app.history and str(engine.device) == str(app.device),
+          "the host did not wire the SLO engine")
+    server = app.serve("127.0.0.1", 0)
+    out: dict[str, Any] = {}
+    try:
+        check(reg.wait_ready(600.0) and reg.ready(), f"the program registry: {reg.snapshot()}")
+        check(profiler().running(), "serve() did not start the profiler")
+        burst = json.loads(http_get(server.url + "/debug/profilez?burst=60")[1])
+        check(burst.get("burst_granted_s") == 60.0, f"/debug/profilez?burst=60: {burst}")
+        driven = ("/tpu", "/tpu/nodes", "/tpu/pods", "/tpu/fleet", "/tpu/metrics")
+        for _ in range(3):
+            for path in driven:
+                check(http_get(server.url + path)[0] == 200, f"GET {path}")
+
+        def failing_sync() -> Any:
+            raise RuntimeError("injected sync failure (chip smoke)")
+
+        app._synced_snapshot = failing_sync
+        try:
+            status, _ = http_get(server.url + "/tpu/nodes")
+        finally:
+            del app._synced_snapshot
+        check(status == 500, f"the injected failing request answered {status}")
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_PAINTS):
+            check(http_get(server.url + "/tpu/metrics")[0] == 200, "GET /tpu/metrics")
+        paints_s = time.perf_counter() - t0
+        check(app._forecast_refresher.drain() and app._metrics_refresher.drain(),
+              "the page's refits did not finish")
+        _ages, series = app.history.series(slo.PAINT_LATENCY_SERIES)
+        check(len(series) == aot.SLO_SERIES_STEADY,
+              f"the paint-latency mirror holds {len(series)} points")
+
+        # The budget forecast: a background fit, polled through /sloz.
+        before = led.snapshot()["programs"]
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        polls = 0
+        while True:
+            polls += 1
+            status, body = http_get(server.url + "/sloz")
+            check(status == 200, f"/sloz answered {status}")
+            forecast = json.loads(body)["budget_forecast"]
+            if forecast.get("reason") != "fit_pending":
+                break
+            check(time.perf_counter() - t0 < 300.0, "the budget forecast stayed fit_pending 300 s")
+            time.sleep(0.05)
+        fit_wait_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        launches = LAUNCHES.n
+        after = led.snapshot()["programs"]
+
+        def moved(name: str, kind: str) -> int:
+            return after.get(name, {}).get(kind, 0) - before.get(name, {}).get(kind, 0)
+
+        check(forecast.get("reason") != "fit_failed" and engine.budget_fit_error is None,
+              f"the budget forecast failed: {forecast}")
+        check(forecast["data_source"] == "history" and forecast["points"] == aot.SLO_SERIES_STEADY,
+              f"the budget forecast trained on {forecast}")
+        burn = (moved(service.SLO_BURN_PROGRAM, "replays"), moved(service.SLO_BURN_PROGRAM, "eager"))
+        cold = moved(COLD_PROGRAM, "replays")
+        check(burn == (1, 0) and cold == 1,
+              f"slo.burn_forecast replays/eager {burn}, cold-fit replays {cold}")
+        check(launches == 1, f"the SLO path launched forecast_mlp_forward {launches} times")
+        health = json.loads(http_get(server.url + "/healthz")[1])
+        check(health["ok"] and health["runtime"]["slo"]["budget_fit_error"] is None,
+              f"/healthz after the budget fit: ok {health['ok']}, slo {health['runtime']['slo']}")
+
+        # The card's predictions: against the kernel's plain version on the
+        # fitted params, and against the port's CPU fit on the same series.
+        card = engine.budget_predictions()
+        check(card is not None and len(card) == cfg.horizon and all(map(math.isfinite, card)),
+              f"card predictions {card}")
+        params = engine._warm_state.params
+        recent = torch.tensor(series[-cfg.window:], device="cuda")[None, :]
+        plain = forecast_forward_reference(params, recent)[0].cpu().numpy()
+        plain_err = float(np.max(np.abs(np.asarray(card) - plain)))
+        cpu, _ = service.forecast_slo_burn(series, device="cpu")
+        fit_diff = float(np.max(np.abs(np.asarray(card) - np.asarray(cpu))))
+        print(f"telemetry: budget forecast after {polls} /sloz polls ({fit_wait_ms:.1f} ms): "
+              f"{forecast}; slo.burn_forecast +{burn[0]} replay, +{burn[1]} eager; "
+              f"forecast_mlp_forward launches={launches}; predictions {[round(p, 6) for p in card]}")
+        print(f"telemetry: card predictions vs the kernel's plain version {plain_err:.3e} "
+              f"(tol {KERNEL_TOL:g}); vs the CPU fit on the same 512 points {fit_diff:.3e} "
+              f"(tol {TELEMETRY_FIT_TOL:g})")
+        check(plain_err <= KERNEL_TOL, f"SLO kernel output vs plain: {plain_err}")
+        check(fit_diff <= TELEMETRY_FIT_TOL, f"card vs CPU budget fit: {fit_diff}")
+
+        # The burn fit's own time, inside the engine's TTL (no refit runs
+        # beside it): replayed at 512 points, eager at a non-bucket length.
+        def fit_ms(points: list[float], n: int) -> float:
+            return p50_ms(lambda: service.forecast_slo_burn(points, device="cuda"), n)
+
+        replay_before = led.snapshot()["programs"][service.SLO_BURN_PROGRAM]
+        replay_ms = fit_ms(series, 7)
+        eager_ms = fit_ms(series[-TELEMETRY_EAGER_POINTS:], 3)
+        replay_after = led.snapshot()["programs"][service.SLO_BURN_PROGRAM]
+        check(replay_after["replays"] - replay_before["replays"] == 7
+              and replay_after["eager"] - replay_before["eager"] == 3,
+              f"slo.burn_forecast while timed: {replay_before} -> {replay_after}")
+        events = device_event_names(torch, lambda: service.forecast_slo_burn(series, device="cuda"))
+        kernel_events = sum("forecast_mlp" in name for name in events)
+
+        # Exemplars on /metricsz name traces in the ring.
+        req = urllib.request.Request(server.url + "/metricsz",
+                                     headers={"Accept": "application/openmetrics-text"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            ctype, metricsz = resp.headers["Content-Type"], resp.read().decode()
+        ids = set(re.findall(r'^headlamp_tpu_torch_request_duration_seconds_bucket\{[^}]*\} '
+                             r'\d+ # \{trace_id="([0-9a-f]{16})"\} ', metricsz, re.M))
+        traces = json.loads(http_get(server.url + "/debug/traces")[1])["traces"]
+        latest = {}
+        for trace in traces:
+            latest.setdefault(trace["route"], trace["trace_id"])
+        linked = ids & {t["trace_id"] for t in traces}
+        check(ctype.startswith("application/openmetrics-text") and metricsz.endswith("# EOF\n")
+              and latest["/tpu/metrics"] in ids and linked,
+              f"/metricsz exemplars: {len(ids)} ids, {len(linked)} in /debug/traces")
+
+        # The flight recorder pinned the failed request.
+        flightz = json.loads(http_get(server.url + "/debug/flightz")[1])
+        failed = [e for e in flightz["pinned"] if e["status"] == 500 and e["route"] == "/tpu/nodes"]
+        check(len(failed) == 1, f"/debug/flightz pinned {flightz['pinned'][:3]}")
+
+        # The profiler attributed samples to the routes driven.
+        prof = json.loads(http_get(server.url + "/debug/profilez")[1])
+        sampled = {r: row["stacks"] for r, row in prof["routes"].items() if r in driven}
+        check("/tpu/metrics" in sampled and prof["samples"] > 0,
+              f"/debug/profilez routes {prof['routes']}")
+        folded = http_get(server.url + "/debug/profilez/folded")[1]
+        check(any(line.startswith("/tpu/metrics;") for line in folded.splitlines()),
+              "no folded stack under /tpu/metrics")
+
+        # The generation ledger's sync→paint stamps.
+        gens = json.loads(http_get(server.url + "/debug/generationz")[1])["generations"]
+        stamped = [g for g in gens if {"scrape_start", "synced", "first_paint"} <= set(g["stages"])]
+        check(bool(stamped) and all(g["age_at_paint_ms"] is not None for g in stamped),
+              f"/debug/generationz: {gens[:2]}")
+        for path in ("/sloz/html", "/debug/traces/html", "/debug/profilez/html",
+                     "/debug/generationz/html"):
+            check(http_get(server.url + path)[0] == 200, f"GET {path}")
+        sloz_ms = []
+        for _ in range(15):
+            t0 = time.perf_counter()
+            status, _, body = app.handle("/sloz/html")
+            sloz_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and "Service Level Objectives" in body, "/sloz/html")
+
+        overhead = profiler().overhead_ns_per_sample()
+        out = dict(
+            costs, sloz_paint_ms=statistics.median(sloz_ms),
+            profiler_overhead_ns_per_sample=overhead, profiler_samples=prof["samples"],
+            burn_fit_replay_ms=replay_ms, burn_fit_eager_ms=eager_ms,
+            eager_points=TELEMETRY_EAGER_POINTS, paints=TELEMETRY_PAINTS,
+            paints_s=paints_s, max_abs_err=plain_err, card_vs_cpu=fit_diff,
+        )
+        print(f"telemetry: {TELEMETRY_PAINTS} /tpu/metrics paints in {paints_s:.2f} s; profiler "
+              f"{prof['samples']} samples, stacks by route {sampled}; exemplars {len(ids)} "
+              f"({len(linked)} in the ring); {len(stamped)} generation(s) stamped sync->paint, "
+              f"first {stamped[0]['stages']}; flight pinned {len(flightz['pinned'])}")
+        print(f"telemetry: slo_eval_overhead_us_per_request {costs['slo_eval_overhead_us_per_request']:.3f}, "
+              f"exemplar_overhead_ns_per_observe {costs['exemplar_overhead_ns_per_observe']:.1f}, "
+              f"flight_ring_memory_kb {costs['flight_ring_memory_kb']:.1f}, sloz_paint_ms p50 "
+              f"{out['sloz_paint_ms']:.3f}, profiler overhead_ns_per_sample {overhead:.1f}; "
+              f"burn fit replayed at 512 points {replay_ms:.3f} ms p50 vs eager at "
+              f"{TELEMETRY_EAGER_POINTS} points {eager_ms:.3f} ms p50; forecast_mlp device events "
+              f"in one replay {kernel_events} of {len(events)}; on {smi}")
+    finally:
+        server.close()
+        slo.set_engine(previous_engine)
+    check(not profiler().running(), "the server's close() left the profiler running")
+    return launches, {"name": "slo.burn_forecast", "route": "cuda graphs",
+                      "replaces": "headlamp_tpu/models/service.py:231", "rows": [out]}
+
+
 def re_cursor(body: str) -> str:
     """The next-window cursor a windowed page links to."""
     found = re.search(r'cursor=([A-Za-z0-9_-]+)" class="hl-res-link hl-cursor-next"', body)
@@ -2111,6 +2390,11 @@ def main() -> int:
 
     # 16. Record and replay: a recorded demo run replayed twice.
     replay_launches = record_replay_phase(torch, smi)
+
+    # 17. Telemetry beyond spans: the SLO engine's budget self-forecast
+    #     replayed on the card, exemplars, the flight recorder, the
+    #     profiler, the generation ledger and the debug pages.
+    telemetry_launches, slo_row = telemetry_phase(torch, clock, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -2125,6 +2409,7 @@ def main() -> int:
          "replaces": "headlamp_tpu/models/aot.py:332", "rows": registry_rows},
         {"name": "mesh", "route": "nccl collectives, cuda graphs",
          "replaces": "headlamp_tpu/parallel/mesh.py:70", "rows": mesh_rows},
+        slo_row,
     ]}))
 
     # 8. The record.
@@ -2137,7 +2422,7 @@ def main() -> int:
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
         "launches": (page_launches + scale_launches + one_launches + serve_launches
                      + cluster_launches + viewport_launches + live_launches + registry_launches
-                     + mesh_launches + replay_launches),
+                     + mesh_launches + replay_launches + telemetry_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -2147,7 +2432,8 @@ def main() -> int:
                              "live_host": live_launches,
                              "program_registry": registry_launches,
                              "mesh": mesh_launches,
-                             "record_replay": replay_launches},
+                             "record_replay": replay_launches,
+                             "slo_self_forecast": telemetry_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -22,6 +22,14 @@ place of a range query once one training window has accumulated),
 ``/healthz`` (:meth:`snapshot`), ``/metricsz`` (the gauges below) and the
 counter view (:meth:`counters`).
 
+Locally measured durations (the scrape's own fetch time, the SLO
+engine's mirror of the paint latencies, the profiler's per-sample
+overhead) pass the ``capture_timings`` gate, so a replay harness can
+drop them wholesale: a timing read on the replaying host is noise that
+would break byte parity between two runs of one recording. A series may
+reserve a ring longer than the default (:meth:`HistoryStore.reserve`):
+the SLO engine's mirror holds as many points as the engine's own series.
+
 Clock discipline: stamps are injected monotonic readings; retention and
 window math never touch the wall clock. Wall time enters only where a
 caller hands one in (``utilization_history(clock=...)`` stamps the
@@ -137,8 +145,14 @@ class HistoryStore:
         self.retention_s = retention_s
         self.max_shards = max_shards
         self._monotonic = monotonic or time.monotonic
+        #: False drops every locally measured timing row (``fleet.scrape_ms``
+        #: and :meth:`record_timing`): a replay harness sets it so two
+        #: runs of one recording stay byte-identical.
+        self.capture_timings = True
         self._lock = threading.Lock()
         self._shards: dict[tuple[str, tuple[str, ...]], _Shard] = {}
+        #: Ring length per metric where it differs from shard_capacity.
+        self._capacity: dict[str, int] = {}
         # Monotone ints (the counter view; registry counters mirror the
         # same transitions).
         self.points = 0
@@ -166,7 +180,8 @@ class HistoryStore:
                 shard = self._shards.get(key)
                 created = shard is None
                 if created:
-                    shard = self._shards[key] = _Shard(self.shard_capacity)
+                    capacity = self._capacity.get(metric, self.shard_capacity)
+                    shard = self._shards[key] = _Shard(capacity)
                 overwritten += shard.append(now, float(value))
                 appended += 1
                 if created:
@@ -181,6 +196,15 @@ class HistoryStore:
         if overwritten + dropped:
             _EVICTED_TOTAL.inc(overwritten + dropped)
         return appended
+
+    def reserve(self, metric: str, capacity: int) -> None:
+        """Give every new series of ``metric`` a ring of ``capacity``
+        points in place of ``shard_capacity`` (a series already created
+        keeps its ring)."""
+        if capacity < 2:
+            raise ValueError("capacity must be >= 2")
+        with self._lock:
+            self._capacity[metric] = int(capacity)
 
     def _enforce_shard_bound_locked(self) -> int:
         """Drop least-recently-appended shards past ``max_shards``;
@@ -221,11 +245,19 @@ class HistoryStore:
         if util_n:
             rows.append(("fleet.mean_tensorcore_utilization", (), util_sum / util_n))
         fetch_ms = getattr(snapshot, "fetch_ms", None)
-        if fetch_ms is not None:
+        if fetch_ms is not None and self.capture_timings:
             rows.append(("fleet.scrape_ms", (), float(fetch_ms)))
         appended = self.append_many(rows)
         self.scrapes += 1
         return appended
+
+    def record_timing(self, metric: str, value: float, *, labels: Iterable[str] = ()) -> bool:
+        """Capture one locally measured duration or overhead, through the
+        ``capture_timings`` gate. Returns whether the row was captured."""
+        if not self.capture_timings:
+            return False
+        self.append(metric, float(value), labels=labels)
+        return True
 
     def record_sync(self, *, generation: int, nodes: int, errors: int = 0) -> None:
         """Capture one cluster-sync snapshot generation."""

@@ -17,6 +17,9 @@ Once the program registry is ready (``models/aot.py``) and a warm carry
 meets a versioned TPU fleet of ``DEVICE_ROLLUP_MIN_NODES`` or more, the
 fleet rollup and the warm refinement run as one replay of the fused
 graph (:func:`_fused_rollup_forecast`), in one device-to-host copy.
+
+:func:`forecast_slo_burn` fits the host's own scrape→paint latency
+series for the SLO engine's budget self-forecast (``obs/slo.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..analytics.encode import GENERATION_IDS, PHASE_IDS
 from ..analytics.fleet_torch import COLUMNS
 from ..device import DeviceLike, resolve_device
 from ..metrics.client import UtilizationHistory, fetch_utilization_history
+from ..obs import graphcost
 from ..obs.trace import span
 from ..runtime import transfer
 from .forecast import (
@@ -233,6 +237,45 @@ def forecast_from_history_incremental(
     fit_mse = None if dispatch.fit_mse is None else float(dispatch.fit_mse)
     view = _summarize(history, cfg, preds, dispatch, fit_ms, fit_mse)
     return view, new_state
+
+
+#: Graph cost ledger row of the SLO burn self-forecast (JAX's program name).
+SLO_BURN_PROGRAM = "slo.burn_forecast"
+
+
+def forecast_slo_burn(
+    series: list[float],
+    *,
+    state: WarmState | None = None,
+    steps: int = 60,
+    init: Params | None = None,
+    device: DeviceLike = None,
+) -> tuple[list[float] | None, WarmState | None]:
+    """Fit the service's own scrape→paint latency series as one chip and
+    return the forecaster's predictions for it (``cfg.horizon`` of them,
+    after a ``steps``-step cold fit or a warm refinement of ``state``)
+    and the new carry: the SLO engine classifies them against the
+    objective's threshold (`service.py:231-271` of the JAX package).
+
+    Once the registry is ready, a series of ``aot.SLO_SERIES_STEADY``
+    points replays the captured 8-chip graph of its bucket, with the
+    kernel inside it; any other length runs eagerly. The graph cost
+    ledger row ``slo.burn_forecast`` counts each call as a replay or an
+    eager run. Returns ``(None, state)`` for a series too short to fit.
+    Unlike JAX's, an exception from the fit, the replay or the kernel
+    propagates: the engine's refresher records it and ``/sloz`` names it."""
+    if len(series) < 2:
+        return None, state
+    dev = resolve_device(device)
+    with span("slo.budget_fit", series=len(series), steps=steps, warm=state is not None) as node:
+        with graphcost.covering(SLO_BURN_PROGRAM):
+            preds, dispatch, new_state = fit_and_forecast_incremental(
+                np.asarray(series, dtype=np.float32)[None, :], ForecastConfig(),
+                state=state, steps=steps, init=init, device=dev,
+            )
+        if node is not None:
+            node.attrs["inference_path"] = dispatch.path
+    return [float(p) for p in np.asarray(preds).ravel()], new_state
 
 
 def _fused_rollup_forecast(

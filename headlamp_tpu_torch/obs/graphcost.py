@@ -15,6 +15,11 @@ kinds:
   by one, which is what a bucket miss runs, and every run before the
   registry is ready.
 
+A caller whose device work runs through other programs (the SLO burn
+self-forecast, whose fit is a registry program) gets a row of its own
+with :func:`covering`: a call counts as a replay when everything it ran
+inside replayed, else as an eager run.
+
 :meth:`GraphCostLedger.request_captures` is the number that must stay 0
 once the registry is ready: a request never pays a capture. Device-to-
 host bytes dual-account with ``runtime.transfer``'s ``blocking_gets``:
@@ -88,6 +93,8 @@ class GraphCostLedger:
         self._lock = threading.Lock()
         self._seen: set[tuple[str, Any]] = set()
         self._programs: dict[str, dict[str, Any]] = {}
+        #: Per-thread [replays, eager runs], read by covering().
+        self._local = threading.local()
         self.captures = 0
         self.startup_captures = 0
         self.replays = 0
@@ -124,6 +131,8 @@ class GraphCostLedger:
                 row["replays"] += 1
                 row["replay_s"] += elapsed
                 self.replays += 1
+        if not first:
+            self._thread_counts()[0] += 1
         if first:
             _CAPTURES.inc(program=program)
             if startup:
@@ -139,12 +148,43 @@ class GraphCostLedger:
         t0 = self._perf()
         yield
         elapsed = self._perf() - t0
+        self._record_eager(program, elapsed)
+        self._thread_counts()[1] += 1
+
+    def _record_eager(self, program: str, elapsed: float) -> None:
         with self._lock:
             row = self._programs.setdefault(program, _row())
             row["eager"] += 1
             row["eager_s"] += elapsed
             self.eager_runs += 1
         _EAGER.inc(program=program)
+
+    def _thread_counts(self) -> list[int]:
+        counts = getattr(self._local, "counts", None)
+        if counts is None:
+            counts = self._local.counts = [0, 0]
+        return counts
+
+    @contextmanager
+    def covering(self, program: str) -> Iterator[None]:
+        """Wrap one call whose device work runs through other programs on
+        this thread. It counts as a replay of ``program`` when it ran at
+        least one replay and no eager run, else as an eager run. A
+        raising call records nothing."""
+        counts = self._thread_counts()
+        replays0, eager0 = counts
+        t0 = self._perf()
+        yield
+        elapsed = self._perf() - t0
+        if counts[0] > replays0 and counts[1] == eager0:
+            with self._lock:
+                row = self._programs.setdefault(program, _row())
+                row["replays"] += 1
+                row["replay_s"] += elapsed
+                self.replays += 1
+            _REPLAYS.inc(program=program)
+        else:
+            self._record_eager(program, elapsed)
 
     def request_captures(self) -> int:
         """Captures paid outside the startup phase: 0 once the registry is
@@ -221,6 +261,13 @@ def track(program: str, signature: Any = None, *, phase: str = "request") -> Ite
 def eager(program: str) -> Iterator[None]:
     """:meth:`GraphCostLedger.eager` against the live ledger."""
     with _LEDGER.eager(program):
+        yield
+
+
+@contextmanager
+def covering(program: str) -> Iterator[None]:
+    """:meth:`GraphCostLedger.covering` against the live ledger."""
+    with _LEDGER.covering(program):
         yield
 
 

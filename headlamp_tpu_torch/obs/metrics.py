@@ -1,15 +1,20 @@
 """Metric registry and Prometheus text exposition for ``/metricsz``.
 
-The port's copy of ``headlamp_tpu/obs/metrics.py``, trimmed to the
-dashboard host's metrics path: counters, gauges, callback gauges and
-fixed-bucket histograms in a get-or-create registry, rendered in the
-Prometheus text format 0.0.4. Every name carries the port's own prefix,
-``headlamp_tpu_torch_``, and lives in this module's :data:`registry`, so
-a process that imports both packages never mixes the two expositions.
+The port's copy of ``headlamp_tpu/obs/metrics.py``: counters, gauges,
+callback gauges (one sample or a labeled set) and fixed-bucket
+histograms in a get-or-create registry, rendered in the Prometheus text
+format 0.0.4 or, when the scraper asks for it, in OpenMetrics 1.0 with
+exemplars on the histogram buckets. Every name carries the port's own
+prefix, ``headlamp_tpu_torch_``, and lives in this module's
+:data:`registry`, so a process that imports both packages never mixes
+the two expositions.
 
 Each instrument takes its own lock around a read-modify-write; the
 registry lock is taken only at wiring time, when a caller gets or
-creates an instrument and keeps the reference.
+creates an instrument and keeps the reference. Counters and histograms
+take observers (``add_observer``), called after each update: that is
+how the SLO engine (``obs/slo.py``) is fed without its producers
+knowing of it.
 """
 
 from __future__ import annotations
@@ -22,8 +27,34 @@ from typing import Any, Callable, Iterator
 
 _NAME_RE = re.compile(r"^headlamp_tpu_torch_[a-z0-9_]+$")
 
+#: Content type of the OpenMetrics rendering, the only exposition that
+#: may carry exemplar clauses: the 0.0.4 text parser reads a trailing
+#: ``#`` token as a malformed timestamp and fails the whole scrape.
+OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text; version=1.0.0"
 #: Content type of the text exposition format.
 TEXT_CONTENT_TYPE = "text/plain"
+
+
+def negotiate_openmetrics(accept: str | None) -> bool:
+    """True iff the Accept header opts into OpenMetrics: a clause whose
+    media type is ``application/openmetrics-text`` with a q above 0. An
+    absent or unparsable header keeps the text format."""
+    if not accept:
+        return False
+    for clause in accept.split(","):
+        parts = [p.strip() for p in clause.split(";")]
+        if parts[0].lower() != "application/openmetrics-text":
+            continue
+        q = 1.0
+        for param in parts[1:]:
+            if param.lower().startswith("q="):
+                try:
+                    q = float(param[2:])
+                except ValueError:
+                    q = 0.0
+        if q > 0:
+            return True
+    return False
 
 #: Unit suffixes a name must end in: ``_total`` for counters, base units
 #: for measurements, ``_count`` for cardinalities, ``_ratio`` for 0..1,
@@ -72,6 +103,28 @@ def _label_str(labels: tuple[str, ...], values: tuple[str, ...]) -> str:
     return "{" + ",".join(f'{k}="{_escape_label(v)}"' for k, v in zip(labels, values)) + "}"
 
 
+#: Zero-arg callable returning the active request's trace id (or None),
+#: installed by ``obs/exemplars.py`` so this module imports nothing of
+#: the trace layer. None turns exemplar capture off.
+_EXEMPLAR_SOURCE: Callable[[], str | None] | None = None
+
+
+def set_exemplar_source(fn: Callable[[], str | None] | None) -> None:
+    global _EXEMPLAR_SOURCE
+    _EXEMPLAR_SOURCE = fn
+
+
+Observer = Callable[[float, dict[str, Any]], None]
+
+
+def _notify(observers: tuple[Observer, ...], value: float, labels: dict[str, Any]) -> None:
+    for fn in observers:
+        try:
+            fn(value, labels)
+        except Exception:  # noqa: BLE001 — a broken subscriber never fails the producer
+            pass
+
+
 def _label_key(name: str, labels: tuple[str, ...], given: dict[str, Any]) -> tuple[str, ...]:
     if set(given) != set(labels):
         raise ValueError(f"{name}: expected labels {labels}, got {tuple(given)}")
@@ -79,7 +132,8 @@ def _label_key(name: str, labels: tuple[str, ...], given: dict[str, Any]) -> tup
 
 
 class Counter:
-    """Monotone counter, optionally labeled."""
+    """Monotone counter, optionally labeled. Observers ``fn(amount,
+    labels)`` run after each ``inc``."""
 
     kind = "counter"
 
@@ -89,6 +143,10 @@ class Counter:
         self.labels = tuple(labels)
         self._lock = threading.Lock()
         self._values: dict[tuple[str, ...], float] = {}
+        self._observers: tuple[Observer, ...] = ()
+
+    def add_observer(self, fn: Observer) -> None:
+        self._observers = self._observers + (fn,)
 
     def inc(self, amount: float = 1, **labels: Any) -> None:
         if amount < 0:
@@ -96,6 +154,8 @@ class Counter:
         key = _label_key(self.name, self.labels, labels)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
+        if self._observers:
+            _notify(self._observers, amount, labels)
 
     @property
     def value(self) -> float:
@@ -103,10 +163,17 @@ class Counter:
         with self._lock:
             return self._values.get((), 0.0)
 
-    def render_into(self, out: list[str]) -> None:
+    def value_for(self, **labels: Any) -> float:
+        key = _label_key(self.name, self.labels, labels)
         with self._lock:
-            samples = sorted(self._values.items()) or [((), 0.0)]
-        for values, v in samples:
+            return self._values.get(key, 0.0)
+
+    def samples(self) -> list[tuple[tuple[str, ...], float]]:
+        with self._lock:
+            return sorted(self._values.items())
+
+    def render_into(self, out: list[str], openmetrics: bool = False) -> None:
+        for values, v in self.samples() or [((), 0.0)]:
             out.append(f"{self.name}{_label_str(self.labels, values)} {_fmt(v)}")
 
 
@@ -140,7 +207,7 @@ class CallbackGauge:
         self.labels: tuple[str, ...] = ()
         self.fn = fn
 
-    def render_into(self, out: list[str]) -> None:
+    def render_into(self, out: list[str], openmetrics: bool = False) -> None:
         try:
             value = self.fn()
         except Exception:  # noqa: BLE001 — the scrape survives a broken producer
@@ -149,8 +216,44 @@ class CallbackGauge:
             out.append(f"{self.name} {_fmt(float(value))}")
 
 
+class MultiCallbackGauge:
+    """Labeled callback gauge: ``fn`` returns ``(label_values, value)``
+    pairs at scrape time, for sample sets that are themselves dynamic
+    (per-SLO states and burn rates). Raising, or a pair of the wrong
+    arity, omits samples, as with :class:`CallbackGauge`."""
+
+    kind = "gauge"
+
+    def __init__(
+        self, name: str, help: str, labels: tuple[str, ...], fn: Callable[[], Any]
+    ) -> None:
+        self.name = name
+        self.help = help
+        self.labels = tuple(labels)
+        self.fn = fn
+
+    def render_into(self, out: list[str], openmetrics: bool = False) -> None:
+        try:
+            samples = list(self.fn() or ())
+        except Exception:  # noqa: BLE001 — the scrape survives a broken producer
+            return
+        for values, value in samples:
+            values = tuple(str(v) for v in values)
+            if len(values) != len(self.labels):
+                continue
+            out.append(f"{self.name}{_label_str(self.labels, values)} {_fmt(float(value))}")
+
+
+class MultiCallbackCounter(MultiCallbackGauge):
+    """Labeled callback counter: :class:`MultiCallbackGauge`'s contract,
+    rendered as ``TYPE counter``, for monotone values kept outside this
+    process's instruments. The callback is trusted to be monotone."""
+
+    kind = "counter"
+
+
 class _HistogramChild:
-    __slots__ = ("counts", "sum", "count", "lock")
+    __slots__ = ("counts", "sum", "count", "lock", "exemplars")
 
     def __init__(self, n_buckets: int) -> None:
         # counts[i]: observations in (bucket[i-1], bucket[i]];
@@ -159,10 +262,25 @@ class _HistogramChild:
         self.sum = 0.0
         self.count = 0
         self.lock = threading.Lock()
+        #: Per-bucket most recent (trace_id, value), allocated at the
+        #: first traced observe.
+        self.exemplars: list[tuple[str, float] | None] | None = None
+
+
+def _exemplar_suffix(exemplars: list[tuple[str, float] | None] | None, idx: int) -> str:
+    """OpenMetrics exemplar clause of one bucket line, without the
+    optional timestamp: ``# {trace_id="<16hex>"} 0.093``."""
+    if exemplars is None or exemplars[idx] is None:
+        return ""
+    trace_id, value = exemplars[idx]
+    return f' # {{trace_id="{_escape_label(trace_id)}"}} {_fmt(value)}'
 
 
 class Histogram:
-    """Fixed-bucket histogram, rendered cumulative with a ``+Inf`` bucket."""
+    """Fixed-bucket histogram, rendered cumulative with a ``+Inf``
+    bucket. With an exemplar source installed, each observe inside a
+    traced request keeps the request's trace id against the bucket the
+    value landed in; the OpenMetrics rendering emits it."""
 
     kind = "histogram"
 
@@ -181,19 +299,53 @@ class Histogram:
         self.buckets = tuple(float(b) for b in buckets)
         self._lock = threading.Lock()
         self._children: dict[tuple[str, ...], _HistogramChild] = {}
+        self._observers: tuple[Observer, ...] = ()
+
+    def add_observer(self, fn: Observer) -> None:
+        self._observers = self._observers + (fn,)
 
     def observe(self, value: float, **labels: Any) -> None:
+        source = _EXEMPLAR_SOURCE
+        trace_id = source() if source is not None else None
         key = _label_key(self.name, self.labels, labels)
         with self._lock:
             child = self._children.setdefault(key, _HistogramChild(len(self.buckets)))
-        value = float(value)
-        idx = bisect_left(self.buckets, value)
+        value_f = float(value)
+        idx = bisect_left(self.buckets, value_f)
         with child.lock:
             child.counts[idx] += 1
-            child.sum += value
+            child.sum += value_f
             child.count += 1
+            if trace_id is not None:
+                if child.exemplars is None:
+                    child.exemplars = [None] * len(child.counts)
+                child.exemplars[idx] = (trace_id, value_f)
+        if self._observers:
+            _notify(self._observers, value, labels)
 
-    def render_into(self, out: list[str]) -> None:
+    def count_for(self, **labels: Any) -> int:
+        key = _label_key(self.name, self.labels, labels)
+        with self._lock:
+            child = self._children.get(key)
+        return child.count if child is not None else 0
+
+    def exemplars(self) -> list[tuple[tuple[str, ...], str, str, float]]:
+        """``(label_values, le, trace_id, value)`` for every bucket that
+        holds an exemplar."""
+        with self._lock:
+            items = sorted(self._children.items())
+        out: list[tuple[tuple[str, ...], str, str, float]] = []
+        for values, child in items:
+            with child.lock:
+                exemplars = list(child.exemplars) if child.exemplars else []
+            for idx, ex in enumerate(exemplars):
+                if ex is None:
+                    continue
+                le = _fmt(self.buckets[idx]) if idx < len(self.buckets) else "+Inf"
+                out.append((values, le, ex[0], ex[1]))
+        return out
+
+    def render_into(self, out: list[str], openmetrics: bool = False) -> None:
         with self._lock:
             items = sorted(self._children.items())
         if not items and not self.labels:
@@ -202,13 +354,18 @@ class Histogram:
         for values, child in items:
             with child.lock:
                 counts, total, total_sum = list(child.counts), child.count, child.sum
+                # Exemplars only in OpenMetrics: on the text format they
+                # would fail the whole scrape.
+                exemplars = list(child.exemplars) if openmetrics and child.exemplars else None
             cumulative = 0
-            for bound, n in zip(self.buckets, counts):
+            for i, (bound, n) in enumerate(zip(self.buckets, counts)):
                 cumulative += n
                 le = _label_str(self.labels + ("le",), values + (_fmt(bound),))
-                out.append(f"{self.name}_bucket{le} {cumulative}")
+                out.append(f"{self.name}_bucket{le} {cumulative}" + _exemplar_suffix(exemplars, i))
             inf = _label_str(self.labels + ("le",), values + ("+Inf",))
-            out.append(f"{self.name}_bucket{inf} {total}")
+            out.append(
+                f"{self.name}_bucket{inf} {total}" + _exemplar_suffix(exemplars, len(self.buckets))
+            )
             out.append(f"{self.name}_sum{_label_str(self.labels, values)} {_fmt(total_sum)}")
             out.append(f"{self.name}_count{_label_str(self.labels, values)} {total}")
 
@@ -247,6 +404,29 @@ class MetricRegistry:
             gauge.fn = fn
         return gauge
 
+    def gauge_samples_fn(
+        self, name: str, help: str, labels: tuple[str, ...], fn: Callable[[], Any]
+    ) -> MultiCallbackGauge:
+        """Labeled callback gauge; the latest producer wins, as with
+        :meth:`gauge_fn`."""
+        gauge = self._get_or_create(
+            name, lambda: MultiCallbackGauge(name, help, labels, fn), "gauge"
+        )
+        if isinstance(gauge, MultiCallbackGauge):
+            gauge.fn = fn
+        return gauge
+
+    def counter_samples_fn(
+        self, name: str, help: str, labels: tuple[str, ...], fn: Callable[[], Any]
+    ) -> MultiCallbackCounter:
+        """Labeled callback counter; the latest producer wins."""
+        counter = self._get_or_create(
+            name, lambda: MultiCallbackCounter(name, help, labels, fn), "counter"
+        )
+        if isinstance(counter, MultiCallbackCounter):
+            counter.fn = fn
+        return counter
+
     def histogram(
         self,
         name: str,
@@ -263,14 +443,22 @@ class MetricRegistry:
             metrics = list(self._metrics.values())
         return iter(sorted(metrics, key=lambda m: m.name))
 
-    def render(self) -> str:
+    def render(self, *, openmetrics: bool = False) -> str:
         """The /metricsz body: one HELP and TYPE block per metric, its
-        samples after."""
+        samples after, in the text format 0.0.4 without exemplars. With
+        ``openmetrics``: OpenMetrics 1.0, counter families named without
+        their ``_total`` suffix (the samples keep it), exemplar clauses
+        on histogram buckets and the ``# EOF`` terminator."""
         out: list[str] = []
         for metric in self:
-            out.append(f"# HELP {metric.name} {_escape_help(metric.help)}")
-            out.append(f"# TYPE {metric.name} {metric.kind}")
-            metric.render_into(out)
+            family = metric.name
+            if openmetrics and metric.kind == "counter":
+                family = family[: -len("_total")]
+            out.append(f"# HELP {family} {_escape_help(metric.help)}")
+            out.append(f"# TYPE {family} {metric.kind}")
+            metric.render_into(out, openmetrics=openmetrics)
+        if openmetrics:
+            out.append("# EOF")
         return "\n".join(out) + "\n"
 
 

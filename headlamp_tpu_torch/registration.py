@@ -10,7 +10,11 @@ Workloads, Device Plugin, Topology, Metrics and Trends (``/tpu/trends``,
 painted from the host's history store), the native nodes table at
 ``/nodes``, the TPU Node and Pod detail sections (rendered by the host's
 ``/node/<name>`` and ``/pod/<namespace>/<name>`` views) and the TPU
-columns processor. The debug pages and the Intel pages are not
+columns processor, then the telemetry pages: the trace waterfall
+(``/debug/traces/html``), the SLO status page (``/sloz/html``), the
+profiler's flame view (``/debug/profilez/html``) and the generation
+timeline (``/debug/generationz/html``), registered routes outside the
+sidebar as in JAX. The incident timeline and the Intel pages are not
 registered, so the host answers them with a 404 and never with a
 stand-in page.
 """
@@ -21,6 +25,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from .integrations import build_node_tpu_columns, node_detail_section, pod_detail_section
+from .obs.debug_pages import generations_page, profile_page, slo_page, traces_page
 from .pages import (
     device_plugins_page,
     metrics_page,
@@ -140,6 +145,17 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             Route("/tpu/trends", "tpu-trends", trends_page, kind="trends"),
             Route(
                 "/nodes", "cluster-nodes", native_nodes_page, kind="native-nodes", paged=True
+            ),
+            # The telemetry pages: registered, so they paint through the
+            # host's chrome, but operator tools outside the sidebar. Their
+            # kind dispatch hands each its snapshot, never a cluster
+            # snapshot; the JSON twins are the host's own routes.
+            Route("/debug/traces/html", "debug-traces", traces_page, kind="traces"),
+            Route("/sloz/html", "slo-status", slo_page, kind="slo"),
+            Route("/debug/profilez/html", "debug-profile", profile_page, kind="profile"),
+            Route(
+                "/debug/generationz/html", "debug-generations", generations_page,
+                kind="generations",
             ),
         ]
     )

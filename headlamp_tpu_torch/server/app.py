@@ -31,8 +31,17 @@ over stdlib ``http.server``:
   and the device columns), then redirect to a registered route or a node
   or pod detail path;
 - ``GET /healthz``            liveness and the runtime counters, as JSON;
-- ``GET /metricsz``           Prometheus text self-exposition;
-- ``GET /debug/traces``       recent request traces, as JSON.
+- ``GET /metricsz``           Prometheus text self-exposition, or
+  OpenMetrics with exemplars when the Accept header asks for it;
+- ``GET /sloz``               the SLO engine's report (burn rates, budgets,
+  exemplars, the budget self-forecast fit on the app's device), as JSON;
+- ``GET /debug/traces``, ``/debug/flightz``, ``/debug/generationz``,
+  ``/debug/profilez`` (``?burst=SECONDS``) and ``/debug/profilez/folded``
+  the trace ring, the flight recorder, the generation ledger and the
+  sampling profiler; ``/debug/traces/html``, ``/sloz/html``,
+  ``/debug/profilez/html`` and ``/debug/generationz/html`` are their
+  registered HTML pages, painted from the same snapshots and never from
+  a cluster snapshot.
 
 Every other path is a 404. Every snapshot page reads a cluster snapshot
 from the app's ``AcceleratorDataContext``. Without background sync it is
@@ -57,7 +66,16 @@ the refinement as one fused replay whose rollup the overview then reads.
 ``/healthz`` carries the graph cost ledger (``runtime.graphs``) and the
 registry (``runtime.aot``); a failed capture turns ``ok`` false.
 
-The gateway, push, replication, workers, SLOs, the fragment cache, the
+Each request runs in its own trace with its route published to the
+sampling profiler; its latency (a non-5xx) is observed inside the trace,
+so the histogram's exemplar carries the trace id, and feeds the SLO
+engine; its wide event, with what it moved in the runtime counters,
+goes to the flight recorder, pinned when it answered 5xx or violated an
+objective. The generation ledger stamps each sync's scrape and snapshot
+and each generation's first paint. :func:`serve` also starts the
+sampling profiler's thread; the server's ``close()`` stops it.
+
+The gateway, push, replication, workers, the fragment cache, the
 incident timeline and the pages not listed above are not part of this
 host; ``/healthz`` leaves out the keys of the JAX host's that describe
 them.
@@ -88,9 +106,13 @@ from ..models import aot
 from ..models.fused_forward import LAUNCHES, kernel_build_info
 from ..models.service import ForecastView, compute_forecast_incremental
 from ..obs import graphcost
-from ..obs.metrics import TEXT_CONTENT_TYPE
+from ..obs import slo as slo_mod
+from ..obs.flight import flight_recorder, wide_event
+from ..obs.ledger import GenerationLedger
+from ..obs.metrics import OPENMETRICS_CONTENT_TYPE, TEXT_CONTENT_TYPE, negotiate_openmetrics
 from ..obs.metrics import registry as metrics_registry
-from ..obs.trace import annotate, span, trace_request, trace_ring
+from ..obs.profiler import attribution, profiler
+from ..obs.trace import annotate, current_trace_id, span, trace_request, trace_ring
 from ..pages.native import native_node_page, native_pod_page
 from ..registration import Registry, register_plugin
 from ..runtime.device_cache import warm_carries
@@ -101,7 +123,17 @@ from ..ui import Element, render_html
 from .style import STYLESHEET
 
 #: Paths the host answers itself, outside the registry.
-_OWN_ROUTES = ("/healthz", "/refresh", "/metricsz", "/debug/traces")
+_OWN_ROUTES = (
+    "/healthz",
+    "/refresh",
+    "/metricsz",
+    "/debug/traces",
+    "/sloz",
+    "/debug/flightz",
+    "/debug/profilez",
+    "/debug/profilez/folded",
+    "/debug/generationz",
+)
 
 #: The native detail paths (`app.py:65-70` of the JAX host): Kubernetes
 #: names only, so a detail path is a bounded route label and a safe
@@ -109,11 +141,29 @@ _OWN_ROUTES = ("/healthz", "/refresh", "/metricsz", "/debug/traces")
 _NODE_DETAIL_RE = re.compile(r"^/node/([a-z0-9.-]{1,253})$")
 _POD_DETAIL_RE = re.compile(r"^/pod/([a-z0-9.-]{1,253})/([a-z0-9.-]{1,253})$")
 
-#: Route labels whose traces stay out of the ring: a probe polling
-#: /healthz or a scraper on /metricsz would evict every page trace, and
-#: tracing /debug/traces would make the ring describe itself. Their
-#: request metrics still count.
-_RING_EXCLUDED = frozenset({"/healthz", "/metricsz", "/debug/traces"})
+#: Route labels whose traces stay out of the ring and whose requests stay
+#: out of the flight recorder: a probe polling /healthz or a scraper on
+#: /metricsz would evict every page trace, and tracing the debug surfaces
+#: would make them describe themselves. Their request metrics still count.
+_RING_EXCLUDED = frozenset(
+    {
+        "/healthz",
+        "/metricsz",
+        "/debug/traces",
+        "/debug/traces/html",
+        "/sloz",
+        "/sloz/html",
+        "/debug/flightz",
+        "/debug/profilez",
+        "/debug/profilez/folded",
+        "/debug/profilez/html",
+        "/debug/generationz",
+        "/debug/generationz/html",
+    }
+)
+
+#: Route kinds painted from a telemetry snapshot, never a cluster one.
+_DEBUG_KINDS = ("traces", "slo", "profile", "generations")
 
 
 @lru_cache(maxsize=64)
@@ -239,6 +289,15 @@ class DashboardApp:
         #: active store only feeds the /metricsz gauges (latest app wins).
         self.history = HistoryStore(monotonic=monotonic, device=self._device)
         set_active_store(self.history)
+        # The process SLO engine mirrors its paint latencies into (and
+        # trains its budget forecast from) this store, on this app's
+        # device: the latest app wins, as with the store's gauges.
+        engine = slo_mod.engine()
+        engine.history_store = self.history
+        engine.device = self._device
+        #: Lifecycle stamps of every snapshot generation this app syncs
+        #: and paints, on the app's clocks.
+        self.ledger = GenerationLedger(monotonic=monotonic, wall=clock, role="leader")
         # Every scrape the metrics refresher stores (background refits
         # and cold fills) lands in the history store.
         self._metrics_refresher.on_store = self._capture_metrics_store
@@ -260,14 +319,10 @@ class DashboardApp:
         self.last_request_device_gets = 0
         # Get-or-create: many apps in one process share the instruments.
         self._req_hist = metrics_registry.histogram(
-            "headlamp_tpu_torch_request_duration_seconds",
-            "End-to-end handle() latency per route template (non-5xx responses).",
-            labels=("route",),
+            slo_mod.REQUEST_DURATION, slo_mod.REQUEST_DURATION_HELP, labels=("route",)
         )
         self._req_total = metrics_registry.counter(
-            "headlamp_tpu_torch_requests_total",
-            "Requests served, by route template and status code.",
-            labels=("route", "status"),
+            slo_mod.REQUESTS_TOTAL, slo_mod.REQUESTS_TOTAL_HELP, labels=("route", "status")
         )
         self._sync_fail_total = metrics_registry.counter(
             "headlamp_tpu_torch_sync_failures_total",
@@ -282,6 +337,14 @@ class DashboardApp:
     def _home(self) -> str:
         """Where /refresh returns by default: the first registered page."""
         return self._registry.routes[0].path
+
+    def snapshot_generation(self) -> int:
+        """The generation of the last published snapshot (0 before any
+        sync), read without a lock."""
+        snap = self._last_snapshot
+        if snap is None:
+            return 0
+        return next((int(s.view.version) for s in snap.providers.values() if s.view.version), 0)
 
     # ------------------------------------------------------------------
     # The cluster snapshot
@@ -360,6 +423,7 @@ class DashboardApp:
         with trace_request("/sync", wall=self._clock) as trace:
             try:
                 with span("sync.snapshot", source="background"), self._sync_lock:
+                    self.ledger.scrape_started()
                     self._ctx.sync()
                     now = self._mono()
                     self._last_sync = now
@@ -430,6 +494,8 @@ class DashboardApp:
             self.history.record_sync(
                 generation=generation, nodes=len(snap.all_nodes or []), errors=len(snap.errors)
             )
+            # The scrape became this generation.
+            self.ledger.synced(generation, trace_id=current_trace_id())
         if snap is not None and not snap.errors:
             self._sync_failures = 0
             return
@@ -461,6 +527,7 @@ class DashboardApp:
             with self._sync_lock:
                 now = self._mono()
                 if not self._background_live() and now - self._last_sync >= self._min_sync:
+                    self.ledger.scrape_started()
                     self._ctx.sync()
                     self._last_sync = now
                     snap = self._ctx.snapshot()
@@ -588,21 +655,33 @@ class DashboardApp:
             return route_path
         return "other"
 
-    def handle(self, path: str) -> tuple[int, str, str]:
+    def handle(self, path: str, accept: str | None = None) -> tuple[int, str, str]:
         """(status, content_type, body) for a GET; for a 302 the content
-        type slot holds the Location. Never raises: an exception becomes
-        a 500 page that names it. Each request runs in its own transfer
-        batch, which counts the device-to-host copies it waits for, and
-        its own trace, which lands in the trace ring."""
+        type slot holds the Location. ``accept`` is the Accept header;
+        only /metricsz reads it. Never raises: an exception becomes a 500
+        page that names it.
+
+        Each request runs in its own transfer batch, which counts the
+        device-to-host copies it waits for, and its own trace, which
+        lands in the trace ring, with its route published to the sampling
+        profiler. Its latency is observed inside the trace (the bucket's
+        exemplar carries the trace id); a 5xx stays out of the latency
+        histogram and counts once, in requests_total, which is how the
+        SLO engine sees it. A recorded request's wide event, with the
+        runtime counters it moved, goes to the flight recorder, pinned
+        when it answered 5xx or violated an objective."""
         t0 = time.perf_counter()
         route_label = self._route_label(path)
         batch = TransferBatch()
         status = 500
         recorded = route_label not in _RING_EXCLUDED
-        with trace_request(path, enabled=recorded, wall=self._clock) as trace:
+        counters_before = self._runtime_counters() if recorded else None
+        with trace_request(path, enabled=recorded, wall=self._clock) as trace, attribution(
+            route_label
+        ):
             try:
                 with batch.scope():
-                    status, content_type, body = self._handle(path)
+                    status, content_type, body = self._handle(path, accept)
                     return status, content_type, body
             except Exception as e:  # noqa: BLE001 — the request's error boundary
                 body = self._page_html(
@@ -616,27 +695,95 @@ class DashboardApp:
                     self.requests_served += 1
                     self.request_device_gets += batch.blocking_gets
                     self.last_request_device_gets = batch.blocking_gets
+                duration_s = time.perf_counter() - t0
                 # A 5xx counts in requests_total only: a fast error is not
                 # a good latency observation.
                 if status < 500:
-                    self._req_hist.observe(time.perf_counter() - t0, route=route_label)
+                    self._req_hist.observe(duration_s, route=route_label)
                 self._req_total.inc(route=route_label, status=str(status))
+                trace_dict = None
                 if trace is not None:
                     trace.finish(route=route_label, status=status, device_gets=batch.blocking_gets)
-                    trace_ring.record(trace.to_dict())
+                    trace_dict = trace.to_dict()
+                    trace_ring.record(trace_dict)
+                if counters_before is not None:
+                    violations = slo_mod.engine().violations(route_label, duration_s, status)
+                    flight_recorder.record(
+                        wide_event(
+                            path=path, route=route_label, status=status, duration_s=duration_s,
+                            trace=trace_dict, violations=violations,
+                            counters_before=counters_before,
+                            counters_after=self._runtime_counters(),
+                        ),
+                        pinned=bool(violations) or status >= 500,
+                    )
 
-    def _handle(self, path: str) -> tuple[int, str, str]:
+    def _runtime_counters(self) -> dict[str, float]:
+        """The flat, dotted monotone counters a wide event reports the
+        movement of: plain reads, taken twice per recorded request."""
+        out: dict[str, float] = {}
+        blocks: list[tuple[str, dict[str, Any]]] = [
+            ("transfer", transfer_stats.snapshot()),
+            ("fleet_cache", self._ctx.fleet_cache.counters()),
+            ("warm_carries", self._warm_forecast_states.counters()),
+            ("history", self.history.counters()),
+            ("graphs", graphcost.ledger().counters()),
+            ("aot", aot.registry().counters()),
+            ("profiler", profiler().counters()),
+        ]
+        blocks += [
+            (f"refresh.{r.name}", r.counters())
+            for r in (self._metrics_refresher, self._forecast_refresher)
+        ]
+        for prefix, counters in blocks:
+            for key, value in counters.items():
+                out[f"{prefix}.{key}"] = value
+        return out
+
+    def _handle(self, path: str, accept: str | None = None) -> tuple[int, str, str]:
         parsed = urlparse(path)
         route_path = parsed.path.rstrip("/") or "/tpu"
 
         if route_path == "/healthz":
             return 200, "application/json", json.dumps(self._health())
         if route_path == "/metricsz":
+            # Exemplars ride the OpenMetrics rendering only: a text-format
+            # scraper would fail the whole scrape on them.
+            if negotiate_openmetrics(accept):
+                return 200, OPENMETRICS_CONTENT_TYPE, metrics_registry.render(openmetrics=True)
             return 200, TEXT_CONTENT_TYPE, metrics_registry.render()
         if route_path == "/debug/traces":
             return 200, "application/json", json.dumps(
                 {"capacity": trace_ring.capacity, "traces": trace_ring.snapshot()}
             )
+        if route_path == "/sloz":
+            return 200, "application/json", json.dumps(slo_mod.engine().report())
+        if route_path == "/debug/flightz":
+            snapshot = flight_recorder.snapshot()
+            return 200, "application/json", json.dumps({
+                "capacity": flight_recorder.capacity,
+                "pinned_capacity": flight_recorder.pinned_capacity,
+                "pinned": snapshot["pinned"],
+                "recent": snapshot["recent"],
+            })
+        if route_path == "/debug/generationz":
+            return 200, "application/json", json.dumps(self.ledger.snapshot())
+        if route_path == "/debug/profilez":
+            # ?burst=N samples at the burst rate for N seconds (clamped).
+            prof = profiler()
+            query = parse_qs(parsed.query)
+            granted: float | None = None
+            if "burst" in query:
+                try:
+                    granted = prof.burst(float(query["burst"][0]))
+                except ValueError:
+                    granted = None
+            out = prof.snapshot()
+            if granted is not None:
+                out["burst_granted_s"] = granted
+            return 200, "application/json", json.dumps(out)
+        if route_path == "/debug/profilez/folded":
+            return 200, "text/plain", profiler().folded()
         if route_path == "/refresh":
             # With the background loop live, waking it covers both tracks
             # and the redirect never waits on the sync lock the loop holds
@@ -690,6 +837,8 @@ class DashboardApp:
             return 404, "text/html", self._page_html("Not Found", "<p>No such page.</p>")
         if route.kind == "trends":
             return self._trends_response(route, parse_qs(parsed.query), route_path)
+        if route.kind in _DEBUG_KINDS:
+            return self._debug_page_response(route, route_path)
         snap = self._synced_snapshot()
         now = self._clock()
         params = parse_qs(parsed.query)
@@ -732,6 +881,26 @@ class DashboardApp:
                 el = route.component(snap, now=now, region=region, **paging)
             else:
                 el = route.component(snap, now=now, **paging)
+        with span("render.html"):
+            body = self._page_html(route.name, render_html(el), route_path)
+        # The generation's first paint, stamped after its bytes are built;
+        # a later paint of the same generation is a no-op.
+        self.ledger.paint(self.snapshot_generation(), trace_id=current_trace_id())
+        return 200, "text/html", body
+
+    def _debug_page_response(self, route: Any, route_path: str) -> tuple[int, str, str]:
+        """A telemetry page, painted from its snapshot alone: it reads no
+        cluster snapshot and never syncs, so it paints while the sync is
+        what is being debugged."""
+        with span("page.component", kind=route.kind):
+            if route.kind == "traces":
+                el = route.component(trace_ring.snapshot())
+            elif route.kind == "slo":
+                el = route.component(slo_mod.engine().report())
+            elif route.kind == "profile":
+                el = route.component(profiler().snapshot())
+            else:
+                el = route.component(self.ledger.snapshot())
         with span("render.html"):
             body = self._page_html(route.name, render_html(el), route_path)
         return 200, "text/html", body
@@ -795,15 +964,16 @@ class DashboardApp:
         lock: it reads the last published snapshot. ``ok`` is false after
         ``HEALTH_FAILURE_THRESHOLD`` failing syncs in a row, while the
         background loop's snapshot is older than its wedged limit, while
-        the last background warm failed, or once a capture of the
-        program registry failed. Ages run on the injected monotonic
-        clock."""
+        the last background warm failed, once a capture of the program
+        registry failed, or while the SLO engine's last budget fit
+        failed. Ages run on the injected monotonic clock."""
         snap = self._last_snapshot
         failures = self._sync_failures
         ok = (
             failures < self.HEALTH_FAILURE_THRESHOLD
             and not self._warm_failing
             and aot.registry().compile_errors == 0
+            and slo_mod.engine().budget_fit_error is None
         )
         background = self._background_live()
         health: dict[str, Any] = {"ok": ok, "loading": snap is None or snap.loading}
@@ -857,8 +1027,9 @@ class DashboardApp:
         """The /healthz runtime block: device-to-host copies paid, the
         device-resident fleet columns, the warm carries, both
         refreshers, the graph cost ledger and the program registry, the
-        context's watch counters, the background loop,
-        the history store, and the device with its kernel."""
+        context's watch counters, the background loop, the history
+        store, the SLO states with the last budget fit's error, the
+        profiler's counters, and the device with its kernel."""
         with self._lock:
             background = {
                 **self._background_counters,
@@ -866,6 +1037,8 @@ class DashboardApp:
                 "last_warm_error": self._last_warm_error,
                 "last_sync_error": self._last_sync_error,
             }
+        engine, prof = slo_mod.engine(), profiler()
+        overhead = prof.overhead_ns_per_sample()
         return {
             "transfer": transfer_stats.snapshot(),
             "fleet_cache": self._ctx.fleet_cache.snapshot(),
@@ -881,6 +1054,16 @@ class DashboardApp:
             },
             "graphs": graphcost.ledger().snapshot(),
             "aot": aot.registry().snapshot(),
+            "slo": {
+                "states": engine.health_block(),
+                "budget_fit_error": engine.budget_fit_error,
+            },
+            "profiler": {
+                **prof.counters(),
+                "nodes": prof.node_count(),
+                "running": prof.running(),
+                "overhead_ns_per_sample": None if overhead is None else round(overhead, 1),
+            },
             "device": self._device_health(),
         }
 
@@ -914,12 +1097,13 @@ class DashboardApp:
 
     def close(self, timeout_s: float = 30.0) -> None:
         """Stop the background loop and join its thread, wait for every
-        refit in flight and join its thread, join the context's reactive
-        worker, then drop the process's warm carries and the snapshot's
-        device columns and wait for the card's queued work, so nothing
-        this app started is still running (the loop is joined first, so
-        a late warm cannot republish columns after the drop). Raises
-        TimeoutError if a thread outlives ``timeout_s``."""
+        refit in flight (the SLO engine's budget fit too) and join its
+        thread, join the context's reactive worker, then drop the
+        process's warm carries and the snapshot's device columns and wait
+        for the card's queued work, so nothing this app started is still
+        running (the loop is joined first, so a late warm cannot
+        republish columns after the drop). Raises TimeoutError if a
+        thread outlives ``timeout_s``."""
         with self._bg_lock:
             stop = self._background_stop
             threads = list(self._background_threads)
@@ -932,6 +1116,9 @@ class DashboardApp:
         for r in (self._metrics_refresher, self._forecast_refresher):
             if not r.drain(timeout_s):
                 raise TimeoutError(f"the {r.name} refresher's refits outlived {timeout_s} s")
+        # A /sloz read may have started the engine's budget fit.
+        if not slo_mod.engine().drain(timeout_s):
+            raise TimeoutError(f"the SLO budget fit outlived {timeout_s} s")
         self._ctx.close()
         self._warm_forecast_states.invalidate()
         self._ctx.fleet_cache.invalidate()
@@ -963,13 +1150,17 @@ class DashboardServer:
 
     def close(self, timeout_s: float = 30.0) -> None:
         """Stop accepting, close the socket, join the request threads,
-        then close the app: its refits drained, the warm carries and
-        device columns dropped and no CUDA work left in flight."""
+        release the sampling profiler (its thread stops and is joined
+        with the last server's close), then close the app: its refits
+        and the SLO budget fit drained, the warm carries and device
+        columns dropped and no CUDA work left in flight."""
         self._httpd.shutdown()
         self._thread.join()
         # ThreadingHTTPServer blocks on close: server_close joins every
         # request thread it started.
         self._httpd.server_close()
+        if not profiler().stop(timeout_s):
+            raise TimeoutError(f"the sampling profiler outlived {timeout_s} s")
         # The registry's captures serve() started (or a backfill): the
         # graphs stay in the process registry, the threads end here.
         if not aot.registry().join(timeout_s):
@@ -979,17 +1170,20 @@ class DashboardServer:
 
 def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
     """Bind ``(host, port)`` (port 0 picks a free one) and serve ``app``
-    on a ``ThreadingHTTPServer``, one thread per request, and start the
+    on a ``ThreadingHTTPServer``, one thread per request; start the
     process's program registry capturing its startup set on the app's
     device on a background thread (`app.py:1745-1755` of the JAX host;
-    a no-op once started). Requests that arrive before it is ready run
-    their programs eagerly. Building an app never starts it. Returns the
-    running server; its ``close()`` stops everything it started."""
+    a no-op once started), and the sampling profiler's thread
+    (`app.py:1741`). Requests that arrive before the registry is ready
+    run their programs eagerly. Building an app never starts either.
+    Returns the running server; its ``close()`` stops everything it
+    started."""
     aot.registry().compile_startup(app.device)
+    profiler().start()
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self) -> None:  # noqa: N802 (http.server API)
-            status, content_type, body = app.handle(self.path)
+            status, content_type, body = app.handle(self.path, self.headers.get("Accept"))
             if status == 302:
                 self.send_response(302)
                 self.send_header("Location", content_type)

@@ -4,12 +4,14 @@ boundaries. Pages build trees; renderers are separate."""
 from .components import (
     BAR_CRIT_PCT,
     BAR_WARN_PCT,
+    BudgetBar,
     EmptyContent,
     ErrorBox,
     Loader,
     NameValueTable,
     PercentageBar,
     SectionBox,
+    SectionHeader,
     SimpleTable,
     StatusLabel,
     UtilizationBar,
@@ -20,6 +22,7 @@ from .vdom import Element, h, render_html, render_text, text_content
 __all__ = [
     "BAR_CRIT_PCT",
     "BAR_WARN_PCT",
+    "BudgetBar",
     "Element",
     "EmptyContent",
     "ErrorBox",
@@ -28,6 +31,7 @@ __all__ = [
     "NameValueTable",
     "PercentageBar",
     "SectionBox",
+    "SectionHeader",
     "SimpleTable",
     "StatusLabel",
     "UtilizationBar",

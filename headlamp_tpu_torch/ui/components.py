@@ -2,7 +2,8 @@
 (``headlamp_tpu/ui/components.py``) that the port's pages render.
 
 Semantics mirror the Headlamp kit the reference composes (SectionBox,
-SimpleTable, NameValueTable, StatusLabel, Loader, PercentageBar). Each returns an
+SectionHeader, SimpleTable, NameValueTable, StatusLabel, Loader,
+PercentageBar), plus the SLO page's BudgetBar. Each returns an
 :class:`Element`; ``class_`` names (``hl-*``) are the stable hooks tests
 and the stylesheet key off.
 """
@@ -26,6 +27,15 @@ def SectionBox(title: str | None, *children: Any, class_: str = "") -> Element:
         {"class_": cls},
         h("h2", {"class_": "hl-section-title"}, title) if title else None,
         *children,
+    )
+
+
+def SectionHeader(title: str, *actions: Any) -> Element:
+    return h(
+        "header",
+        {"class_": "hl-section-header"},
+        h("h2", None, title),
+        h("div", {"class_": "hl-actions"}, *actions) if actions else None,
     )
 
 
@@ -110,6 +120,20 @@ def UtilizationBar(used: float, capacity: float, *, unit: str = "") -> Element:
         {"class_": f"hl-utilbar hl-utilbar-{level}", "data-pct": f"{pct:.0f}"},
         h("div", {"class_": "hl-utilbar-fill", "style": f"width:{pct:.1f}%"}),
         h("span", {"class_": "hl-utilbar-label"}, label),
+    )
+
+
+def BudgetBar(remaining_ratio: float) -> Element:
+    """Error-budget meter of the SLO page: the unspent fraction, colored
+    by how little is left (err at 10% or less, warn at 30% or less), the
+    inverse reading of UtilizationBar on the same thresholds."""
+    pct = max(0.0, min(1.0, float(remaining_ratio))) * 100
+    level = "err" if pct <= 100 - BAR_CRIT_PCT else "warn" if pct <= 100 - BAR_WARN_PCT else "ok"
+    return h(
+        "div",
+        {"class_": f"hl-budgetbar hl-utilbar hl-utilbar-{level}", "data-pct": f"{pct:.0f}"},
+        h("div", {"class_": "hl-utilbar-fill", "style": f"width:{pct:.1f}%"}),
+        h("span", {"class_": "hl-utilbar-label"}, f"{pct:.1f}% budget left"),
     )
 
 

@@ -119,8 +119,11 @@ def test_refresh_unregistered_and_healthz():
     assert health["loading"] and health["analytics"]["calibrated"] is False
     assert app.handle("/refresh?back=/tpu")[:2] == (302, "/tpu")
     assert app.handle("/refresh?back=//evil.example")[:2] == (302, "/tpu")
-    for path in ("/debug/generationz/html", "/debug/traces/html", "/sloz/html", "/intel"):
+    for path in ("/debug/incidentz/html", "/intel"):
         assert app.handle(path)[0] == 404, path
+    # The telemetry pages paint from their own snapshots: no sync either.
+    for path in ("/debug/generationz/html", "/debug/traces/html", "/sloz/html"):
+        assert app.handle(path)[0] == 200, path
     assert app.handle("/tpu/trends")[0] == 200  # reads no snapshot: the app stays unsynced
     assert json.loads(app.handle("/healthz")[2])["loading"]
 

@@ -219,8 +219,12 @@ def test_metrics_request_trace_and_healthz_runtime():
     runtime = health["runtime"]
     assert set(runtime) == {
         "transfer", "fleet_cache", "warm_carries", "refresh", "device",
-        "watch", "background", "history", "graphs", "aot",
+        "watch", "background", "history", "graphs", "aot", "slo", "profiler",
     }
+    assert set(runtime["slo"]["states"]) == {
+        "scrape_paint", "dashboard_render", "forecast_fit", "transport_connect", "data_freshness",
+    } and runtime["slo"]["budget_fit_error"] is None
+    assert runtime["profiler"]["running"] is False  # only serve() starts it
     # Building an app never starts the registry: the fit ran eagerly.
     assert runtime["aot"]["state"] == aot.registry().state
     assert runtime["graphs"]["programs"]["forecast.fit_forecast_state_program"]["eager"] >= 1

@@ -204,7 +204,9 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     assert len(warm_carries) == 1
 
 
-@pytest.mark.parametrize("path", ["/debug/traces/html", "/debug/generationz/html", "/intel", "/sloz"])
+@pytest.mark.parametrize(
+    "path", ["/debug/incidentz/html", "/debug/incidentz", "/intel", "/events"]
+)
 def test_unported_routes_are_404(path):
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     status, ctype, body = app.handle(path)
