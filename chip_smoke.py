@@ -36,8 +36,13 @@ and replay: a recorded demo run of the host replayed twice, byte for
 byte. Then telemetry: the host's SLO engine fits its own scrape→paint
 series on the card as a replay of the registry's 8×512 graph, and its
 exemplars, flight recorder, profiler, generation ledger and debug pages
-are checked over the socket. It exits non-zero at the first failure, and without CUDA or
-without the package beside it.
+are checked over the socket. Then the request gateway every socket request
+now goes through: a saturation curve, sixteen identical cold requests as
+one render and one kernel launch, a 304, shedding and a degraded render
+that launches nothing; and the pooled ``KubeTransport`` against a local
+stand-in apiserver, painting what the demo transport paints. It exits
+non-zero at the first failure, and without CUDA or without the package
+beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -167,6 +172,23 @@ FP64_FLOP_PER_S = 34e12
 TELEMETRY_PAINTS = 540
 TELEMETRY_FIT_TOL = 5e-2
 TELEMETRY_EAGER_POINTS = 500
+#: The gateway step: concurrent keep-alive clients of the saturation
+#: curve and requests per client (bench.py's ``_saturation_curve``), the
+#: unloaded paints, the identical cold burst, and the warm paints over the
+#: pooled transport with their ADR-014 acceptance (``bench.py:1053-1057``).
+GATEWAY_CONCURRENCY = (1, 4, 16, 32)
+GATEWAY_REQUESTS = 8
+GATEWAY_UNLOADED = 20
+GATEWAY_BURST = 16
+TRANSPORT_PAINTS = 5
+MAX_OPENED_PER_PAINT = 1.0
+MIN_REUSE_RATE = 0.9
+#: The gateway step's launches: the cold GET, the burst's one fit, the
+#: restored render after the degraded one, the demo and KubeTransport
+#: paints, and one fit per fresh app of the warm paints on each transport.
+GATEWAY_LAUNCHES = 1 + 1 + 1 + 2 + 2 * TRANSPORT_PAINTS
+#: The two measured durations a metrics page prints (masked to compare).
+PAGE_TIMINGS = re.compile(r"(history in|took) [0-9.e+-]+ ms")
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -1930,6 +1952,11 @@ def telemetry_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[i
     app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock)
     check(engine.history_store is app.history and str(engine.device) == str(app.device),
           "the host did not wire the SLO engine")
+    # The gateway rules on an engine of its own: the failed request this
+    # step pins on purpose would page dashboard_render on the step's
+    # engine and shed the debug pages the step reads (step 18 sheds).
+    gateway_engine = slo.SLOEngine()
+    app.ensure_gateway(engine=lambda: gateway_engine)
     server = app.serve("127.0.0.1", 0)
     out: dict[str, Any] = {}
     try:
@@ -2101,6 +2128,299 @@ def telemetry_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[i
     check(not profiler().running(), "the server's close() left the profiler running")
     return launches, {"name": "slo.burn_forecast", "route": "cuda graphs",
                       "replaces": "headlamp_tpu/models/service.py:231", "rows": [out]}
+
+
+def _keepalive_get(port: int, path: str, conn: Any = None,
+                   headers: dict[str, str] | None = None) -> tuple[int, dict[str, str], bytes, float]:
+    """(status, headers, body, ms) of one GET; with ``conn`` on that
+    client connection (http.client reopens it when the server closes)."""
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        body = resp.read()
+        return resp.status, dict(resp.getheaders()), body, (time.perf_counter() - t0) * 1e3
+    finally:
+        if own:
+            conn.close()
+
+
+def _saturation_curve(port: int) -> dict[str, float]:
+    """bench.py's client loop (``bench.py:1255-1310``) on /tpu/metrics: c
+    clients released by a barrier, each on its own keep-alive connection,
+    unique query strings so coalescing never hides the pool's queueing."""
+    import threading
+
+    out: dict[str, float] = {}
+    for c in GATEWAY_CONCURRENCY:
+        lat: list[float] = []
+        statuses: list[int] = []
+        lock = threading.Lock()
+        barrier = threading.Barrier(c)
+
+        def client(worker: int, c: int = c) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            barrier.wait()
+            mine = [_keepalive_get(port, f"/tpu/metrics?c={c}&w={worker}&i={i}", conn)
+                    for i in range(GATEWAY_REQUESTS)]
+            conn.close()
+            with lock:
+                lat.extend(m[3] for m in mine)
+                statuses.extend(m[0] for m in mine)
+
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(c)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall_s = time.perf_counter() - t0
+        check(statuses == [200] * (c * GATEWAY_REQUESTS), f"c={c}: statuses {set(statuses)}")
+        lat.sort()
+        out[f"p50_ms_c{c}"] = statistics.median(lat)
+        out[f"p99_ms_c{c}"] = lat[max(0, int(len(lat) * 0.99) - 1)]
+        out[f"agg_rps_c{c}"] = len(lat) / wall_s
+    return out
+
+
+def gateway_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 18: the request gateway and the real transport, at --demo
+    large on the card. The host is served with ``serve()`` (its gateway on
+    a switchable SLO engine, its TTL clock a frozen list cell, so no
+    background refit launches in the step): ``/healthz`` shows the
+    gateway; the unloaded /tpu/metrics p50 and a saturation curve at
+    1/4/16/32 keep-alive clients. After ``/refresh``, sixteen identical
+    cold /tpu/metrics GETs fired together are one render and one fit (one
+    kernel launch, a replay: no eager run), the leader held until the
+    other fifteen joined it; their ETag answers a 304 with no body and no
+    render. With a paging engine /debug/traces is a 503 with Retry-After
+    5, /metricsz and /sloz answer, and after an epoch bump /tpu/metrics
+    renders degraded with no launch, replay or eager run; restored, a
+    render launches again. Then a local stand-in apiserver serves the
+    demo fleet: an app on ``KubeTransport`` paints /tpu and /tpu/metrics
+    over the socket with the demo app's ``<main>`` (the measured timings
+    masked), one launch for its fit, and five fresh-app paints over the
+    one transport open at most one connection per paint and reuse at
+    least 0.9 of them. Returns the kernel's launches and the numbers."""
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import graphcost, slo
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+    from headlamp_tpu_torch.server.standin import StandInApiserver
+    from headlamp_tpu_torch.transport import KubeTransport
+
+    def paging_engine() -> Any:
+        eng = slo.SLOEngine(monotonic=lambda: 1000.0)
+        for objective in ("dashboard_render", "scrape_paint"):
+            for _ in range(600):
+                eng.record(objective, False)
+        check(eng.health_block()["scrape_paint"] == "page", "the storm did not page")
+        return eng
+
+    def ledger_kinds() -> tuple[int, int]:
+        programs = graphcost.ledger().snapshot()["programs"].values()
+        return sum(p.get("replays", 0) for p in programs), sum(p.get("eager", 0) for p in programs)
+
+    launches = 0
+    out: dict[str, Any] = {}
+    mono = [5000.0]
+    engines = {"now": slo.SLOEngine()}
+    warm_carries.invalidate()
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                       monotonic=lambda: mono[0], min_sync_interval_s=3600.0)
+    gateway = app.ensure_gateway(engine=lambda: engines["now"])
+    server = app.serve("127.0.0.1", 0)
+    port = int(server.url.rsplit(":", 1)[1])
+    try:
+        check(aot.registry().wait_ready(600.0), f"the program registry: {aot.registry().snapshot()}")
+        health = json.loads(http_get(server.url + "/healthz")[1])["runtime"]
+        check(health.get("gateway", {}).get("workers") == 4, f"/healthz gateway {health.get('gateway')}")
+        LAUNCHES.reset()
+        status, _, _, cold_ms = _keepalive_get(port, "/tpu/metrics")
+        check(status == 200, f"cold GET /tpu/metrics answered {status}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        unloaded = [_keepalive_get(port, f"/tpu/metrics?u={i}", conn)[3]
+                    for i in range(GATEWAY_UNLOADED)]
+        conn.close()
+        curve = _saturation_curve(port)
+        torch.cuda.synchronize()
+        check(LAUNCHES.n == 1, f"the cold GET and cached paints launched {LAUNCHES.n} times")
+        launches += LAUNCHES.n
+        out.update(unloaded_p50_ms=statistics.median(unloaded), cold_ms=cold_ms, **curve)
+        print(f"gateway: /tpu/metrics cold {cold_ms:.1f} ms; unloaded p50 "
+              f"{out['unloaded_p50_ms']:.2f} ms ({GATEWAY_UNLOADED} paints, one client); on {smi}")
+        print("gateway: saturation " + "; ".join(
+            f"c={c} p50 {curve[f'p50_ms_c{c}']:.2f} p99 {curve[f'p99_ms_c{c}']:.2f} ms "
+            f"{curve[f'agg_rps_c{c}']:.1f} req/s" for c in GATEWAY_CONCURRENCY) + f"; on {smi}")
+
+        # Coalescing: after /refresh every cache is cold; sixteen identical
+        # requests fired together cost one render and one fit.
+        check(http_get_no_redirect(server.url + "/refresh?back=/tpu/metrics")[0] == 302,
+              "/refresh did not redirect")
+        inner = gateway._handle
+
+        def gated(path: str, **kw: Any) -> Any:
+            deadline = time.perf_counter() + 30.0
+            while not any(f.followers == GATEWAY_BURST - 1
+                          for f in list(gateway.coalescer._flights.values())):
+                check(time.perf_counter() < deadline, "the burst never gathered")
+                time.sleep(0.0005)
+            return inner(path, **kw)
+
+        gateway._handle = gated
+        before, kinds = gateway.counters(), ledger_kinds()
+        refits = app._forecast_refresher.snapshot()["refits"]
+        conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                 for _ in range(GATEWAY_BURST)]
+        for c in conns:
+            c.connect()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        for c in conns:
+            c.request("GET", "/tpu/metrics")
+        burst = []
+        for c in conns:
+            resp = c.getresponse()
+            burst.append((resp.status, resp.getheader("ETag"), resp.read()))
+            c.close()
+        burst_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        gateway._handle = inner
+        after, kinds_after = gateway.counters(), ledger_kinds()
+        rendered = after["rendered"] - before["rendered"]
+        followers = after["coalesced_followers"] - before["coalesced_followers"]
+        fits = app._forecast_refresher.snapshot()["refits"] - refits
+        replays, eager = kinds_after[0] - kinds[0], kinds_after[1] - kinds[1]
+        leader = json.loads(http_get(server.url + "/debug/traces")[1])["traces"][0]
+        check({b[0] for b in burst} == {200} and len({b[2] for b in burst}) == 1
+              and len({b[1] for b in burst}) == 1,
+              f"burst: statuses {sorted({b[0] for b in burst})}, "
+              f"{len({b[2] for b in burst})} bodies, {len({b[1] for b in burst})} ETags")
+        check(rendered == 1 and followers == GATEWAY_BURST - 1,
+              f"burst: rendered +{rendered}, coalesced_followers +{followers}")
+        check(fits == 1 and LAUNCHES.n == 1 and replays >= 1 and eager == 0,
+              f"burst: {fits} fits, {LAUNCHES.n} launches, +{replays} replays, +{eager} eager")
+        launches += LAUNCHES.n
+        etag = burst[0][1]
+        renders = gateway.counters()["rendered"]
+        status, headers, body, _ = _keepalive_get(port, "/tpu/metrics", headers={"If-None-Match": etag})
+        torch.cuda.synchronize()
+        check(status == 304 and body == b"" and headers.get("ETag") == etag
+              and gateway.counters()["rendered"] == renders and LAUNCHES.n == 1,
+              f"If-None-Match: {status}, {len(body)} bytes, rendered "
+              f"{gateway.counters()['rendered'] - renders}, launches {LAUNCHES.n}")
+        out.update(burst_ms=burst_ms, leader_ms=leader["duration_ms"], burst_replays=replays)
+        print(f"gateway: {GATEWAY_BURST} identical cold GETs after /refresh in {burst_ms:.1f} ms "
+              f"(leader's render {leader['duration_ms']} ms): rendered +{rendered}, "
+              f"coalesced_followers +{followers}, fits {fits}, forecast_mlp_forward launches "
+              f"{LAUNCHES.n}, graph replays +{replays}, eager +{eager}; one ETag {etag}; "
+              f"If-None-Match -> 304, 0 bytes, +0 renders, +0 launches; on {smi}")
+
+        # Shedding on a paging engine.
+        engines["now"] = paging_engine()
+        gateway.shed_policy.invalidate()
+        status, headers, body, _ = _keepalive_get(port, "/debug/traces")
+        shed = json.loads(body)
+        check(status == 503 and headers.get("Retry-After") == "5" and shed["reason"] == "burn_rate"
+              and shed["shed"] is True, f"/debug/traces under paging: {status} {headers} {shed}")
+        for path in ("/metricsz", "/sloz"):
+            check(_keepalive_get(port, path)[0] == 200, f"{path} under paging")
+        check(http_get_no_redirect(server.url + "/refresh?back=/tpu/metrics")[0] == 302,
+              "/refresh under paging")
+        kinds = ledger_kinds()
+        LAUNCHES.reset()
+        status, headers, body, degraded_ms = _keepalive_get(port, "/tpu/metrics")
+        check(app._forecast_refresher.drain(), "a refit outlived the degraded render")
+        torch.cuda.synchronize()
+        check(status == 200 and headers.get("X-Headlamp-Stale") == "1"
+              and b"Utilization Forecast" not in body and LAUNCHES.n == 0
+              and ledger_kinds() == kinds,
+              f"degraded /tpu/metrics: {status}, stale {headers.get('X-Headlamp-Stale')}, "
+              f"launches {LAUNCHES.n}, ledger {kinds} -> {ledger_kinds()}")
+        engines["now"] = slo.SLOEngine()
+        gateway.shed_policy.invalidate()
+        status, headers, body, restored_ms = _keepalive_get(port, "/tpu/metrics")
+        torch.cuda.synchronize()
+        check(status == 200 and headers.get("X-Headlamp-Stale") == "0"
+              and b"Utilization Forecast" in body and LAUNCHES.n == 1,
+              f"restored /tpu/metrics: {status}, launches {LAUNCHES.n}")
+        launches += LAUNCHES.n
+        print(f"gateway: paging -> /debug/traces 503 Retry-After 5 {shed['burn_state']}; "
+              f"/metricsz, /sloz 200; degraded /tpu/metrics {degraded_ms:.1f} ms, stale, no "
+              f"forecast panel, 0 launches, 0 replays, 0 eager; restored {restored_ms:.1f} ms, "
+              f"1 launch; gateway {gateway.counters()}")
+    finally:
+        server.close()
+
+    # The real transport against a local stand-in apiserver.
+    stand = StandInApiserver(make_demo_transport("large"))
+    kube = KubeTransport(stand.url)
+    try:
+        mains = {}
+        for name, transport in (("demo", make_demo_transport("large")), ("kube", kube)):
+            warm_carries.invalidate()
+            app = DashboardApp(transport, device="cuda", clock=clock, monotonic=lambda: mono[0],
+                               min_sync_interval_s=3600.0)
+            app.ensure_gateway(engine=lambda: engines["now"])
+            server = app.serve("127.0.0.1", 0)
+            try:
+                LAUNCHES.reset()
+                pages = [http_get(server.url + path) for path in ("/tpu", "/tpu/metrics")]
+                torch.cuda.synchronize()
+                check([s for s, _ in pages] == [200, 200] and LAUNCHES.n == 1,
+                      f"{name}: statuses {[s for s, _ in pages]}, launches {LAUNCHES.n}")
+                launches += LAUNCHES.n
+                mains[name] = [PAGE_TIMINGS.sub(r"\1 # ms", b.split("<main>")[1]) for _, b in pages]
+                if name == "kube":
+                    block = json.loads(http_get(server.url + "/healthz")[1])["runtime"]["transport"]
+            finally:
+                server.close()
+        check(mains["kube"] == mains["demo"], "KubeTransport's <main> differs from the demo's")
+        paint_ms: dict[str, list[float]] = {"demo": [], "kube": []}
+        before = kube.pool.snapshot()
+        LAUNCHES.reset()
+        for name in ("demo", "kube"):
+            for _ in range(TRANSPORT_PAINTS):
+                transport = kube if name == "kube" else make_demo_transport("large")
+                app = DashboardApp(transport, device="cuda", clock=clock,
+                                   monotonic=lambda: mono[0], min_sync_interval_s=0.0)
+                gw = app.ensure_gateway(engine=lambda: engines["now"])
+                t0 = time.perf_counter()
+                response = gw.handle("/tpu/metrics")
+                paint_ms[name].append((time.perf_counter() - t0) * 1e3)
+                check(response.status == 200, f"{name} paint answered {response.status}")
+                app.close()
+        torch.cuda.synchronize()
+        check(LAUNCHES.n == 2 * TRANSPORT_PAINTS, f"the fresh-app paints launched {LAUNCHES.n}")
+        launches += LAUNCHES.n
+        after = kube.pool.snapshot()
+        opened = after["connections_opened"] - before["connections_opened"]
+        reused = after["connections_reused"] - before["connections_reused"]
+        opened_per_paint = opened / TRANSPORT_PAINTS
+        reuse_rate = reused / (opened + reused)
+        check(opened_per_paint <= MAX_OPENED_PER_PAINT and reuse_rate >= MIN_REUSE_RATE,
+              f"pool over {TRANSPORT_PAINTS} paints: opened {opened}, reused {reused}")
+        p50 = {k: statistics.median(v) for k, v in paint_ms.items()}
+        out.update(kube_paint_p50_ms=p50["kube"], demo_paint_p50_ms=p50["demo"],
+                   connections_opened_per_request=opened_per_paint,
+                   connection_reuse_rate=reuse_rate, stand_in_connects=stand.connects,
+                   stand_in_requests=stand.requests)
+        print(f"transport: KubeTransport <main> of /tpu and /tpu/metrics equal to the demo's; "
+              f"/healthz transport {block}")
+        print(f"transport: scrape->paint p50 over {TRANSPORT_PAINTS} fresh apps: KubeTransport "
+              f"{p50['kube']:.1f} ms vs demo {p50['demo']:.1f} ms; connections_opened_per_request "
+              f"{opened_per_paint:.3f} (<= {MAX_OPENED_PER_PAINT:g}), connection_reuse_rate "
+              f"{reuse_rate:.4f} (>= {MIN_REUSE_RATE:g}); stand-in accepted {stand.connects} "
+              f"connections for {stand.requests} requests; all {json.dumps(paint_ms)}; on {smi}")
+    finally:
+        kube.pool.close()
+        stand.close()
+    check(launches == GATEWAY_LAUNCHES, f"the gateway step launched {launches}, not {GATEWAY_LAUNCHES}")
+    return launches, out
 
 
 def re_cursor(body: str) -> str:
@@ -2395,6 +2715,11 @@ def main() -> int:
     #     replayed on the card, exemplars, the flight recorder, the
     #     profiler, the generation ledger and the debug pages.
     telemetry_launches, slo_row = telemetry_phase(torch, clock, smi)
+
+    # 18. The request gateway and the real transport: the bounded pool,
+    #     coalescing, 304, shedding and degraded renders over the socket,
+    #     then KubeTransport against a local stand-in apiserver.
+    gateway_launches, _gateway_row = gateway_phase(torch, clock, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -2422,7 +2747,8 @@ def main() -> int:
         "replaces": "headlamp_tpu/models/pallas_forward.py:155",
         "launches": (page_launches + scale_launches + one_launches + serve_launches
                      + cluster_launches + viewport_launches + live_launches + registry_launches
-                     + mesh_launches + replay_launches + telemetry_launches),
+                     + mesh_launches + replay_launches + telemetry_launches
+                     + gateway_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -2433,7 +2759,8 @@ def main() -> int:
                              "program_registry": registry_launches,
                              "mesh": mesh_launches,
                              "record_replay": replay_launches,
-                             "slo_self_forecast": telemetry_launches},
+                             "slo_self_forecast": telemetry_launches,
+                             "gateway_and_transport": gateway_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

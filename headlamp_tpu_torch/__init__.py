@@ -10,15 +10,22 @@ reference and nothing here imports it or JAX.
 - ``models``     — the utilization forecaster (``nn.Module``, explicit
                    Adam fit, warm starts) and its fused inference kernel.
 - ``kernels``    — hand-written CUDA C++ for ``sm_90a`` and its build step.
-- ``transport``  — the ``Transport`` protocol, ``MockTransport`` and the
-                   ``WatchFeed`` behind its watchable lists.
+- ``transport``  — the ``Transport`` protocol, ``KubeTransport`` over a
+                   keep-alive ``ConnectionPool`` with RTT-aware fan-out,
+                   ``MockTransport`` and the ``WatchFeed`` behind its
+                   watchable lists.
+- ``gateway``    — the request gateway in front of the host: bounded
+                   priority render pool, burn-rate shedding, coalescing.
+- ``push``       — the ETag, ``If-None-Match`` and gzip helpers.
 - ``fleet``      — deterministic TPU fleet fixtures.
 - ``metrics``    — Prometheus client: discovery, batched instant queries,
                    range-query utilization history.
 - ``server``     — the HTTP dashboard host
                    (``python -m headlamp_tpu_torch.server --demo large``,
-                   ``--background-sync SECONDS`` for the list+watch loop)
-                   and demo transports with synthetic Prometheus series.
+                   ``--apiserver URL``, ``--in-cluster``,
+                   ``--background-sync SECONDS`` for the list+watch loop),
+                   demo transports with synthetic Prometheus series and a
+                   local stand-in apiserver (``server/standin.py``).
 - ``history``    — the bounded history store behind ``/tpu/trends`` and
                    the history-first forecast.
 - ``runtime``    — stale-while-revalidate refresher, warm-carry store and

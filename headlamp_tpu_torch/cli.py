@@ -9,6 +9,8 @@ on the CUDA device), and ``metrics`` with the forecast fit
 on the CUDA device and served by the fused CUDA kernel. ``--device cpu``
 runs the rollup, the fit and the kernel's plain version on the CPU
 instead. Without CUDA and without ``--device cpu`` it fails.
+``--apiserver URL`` or ``--in-cluster`` reads a real cluster over the
+pooled ``KubeTransport`` instead of a demo fleet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from .device import DeviceLike, resolve_device
 from .metrics.client import fetch_tpu_metrics
 from .models.service import compute_forecast
 from .registration import register_plugin
-from .server.demo import DEMO_FLEETS, make_demo_transport
+from .server.demo import add_mode_arguments, transport_from_args
 from .transport.api_proxy import Transport
 from .ui import render_text
 
@@ -71,12 +73,11 @@ def render_page(
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="headlamp_tpu_torch.cli")
     parser.add_argument("page", choices=sorted(PAGES), nargs="?", default="overview")
-    parser.add_argument(
-        "--demo", nargs="?", const="v5p32", choices=sorted(DEMO_FLEETS), default="v5p32"
-    )
+    add_mode_arguments(parser)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = parser.parse_args(argv)
-    print(render_page(args.page, make_demo_transport(args.demo), device=args.device))
+    transport, _mode = transport_from_args(parser, args)
+    print(render_page(args.page, transport, device=args.device))
     return 0
 
 

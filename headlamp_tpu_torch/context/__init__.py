@@ -12,6 +12,7 @@ from .accelerator_context import (
     ProviderState,
 )
 from .sources import (
+    ACTIVE_PODS_FIELD_SELECTOR,
     NODES_PATH,
     PODS_PATH,
     TPU_SOURCE,
@@ -20,6 +21,7 @@ from .sources import (
 )
 
 __all__ = [
+    "ACTIVE_PODS_FIELD_SELECTOR",
     "AcceleratorDataContext",
     "ClusterSnapshot",
     "NODES_PATH",

@@ -176,6 +176,7 @@ class AcceleratorDataContext:
         device: DeviceLike = None,
         clock: Callable[[], float] = time.time,
         watch: bool = False,
+        pod_field_selector: str | None = None,
     ) -> None:
         self._device = resolve_device(device)
         self.fleet_cache = DeviceFleetCache(self._device)
@@ -193,6 +194,9 @@ class AcceleratorDataContext:
         #: from a delta protocol; the server's background loop turns it
         #: on (``DashboardApp.start_background_sync``).
         self._watch_enabled = watch
+        #: Optional server-side pod filter (``ACTIVE_PODS_FIELD_SELECTOR``
+        #: drops Succeeded and Failed pods) on the reactive pod list.
+        self._pod_field_selector = pod_field_selector
 
         self._all_nodes: list[Any] | None = None
         self._all_pods: list[Any] | None = None
@@ -354,6 +358,14 @@ class AcceleratorDataContext:
         self._changed = True
         return None
 
+    def _pods_path(self) -> str:
+        if self._pod_field_selector:
+            return (
+                PODS_PATH + "?fieldSelector="
+                + urllib.parse.quote(self._pod_field_selector, safe="")
+            )
+        return PODS_PATH
+
     def _sync_reactive(self) -> None:
         # The two tracks are independent (own stores, cursors and error
         # streams) and run concurrently: with watch on, a quiet bounded
@@ -373,9 +385,9 @@ class AcceleratorDataContext:
             nodes_future = None
         if nodes_future is None:
             self._node_error = self._sync_track("nodes", NODES_PATH)
-            self._pod_error = self._sync_track("pods", PODS_PATH)
+            self._pod_error = self._sync_track("pods", self._pods_path())
         else:
-            self._pod_error = self._sync_track("pods", PODS_PATH)
+            self._pod_error = self._sync_track("pods", self._pods_path())
             self._node_error = nodes_future.result()
         if self._node_error is None:
             self._all_nodes = list(self._track_store["nodes"].values())

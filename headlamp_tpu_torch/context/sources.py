@@ -27,6 +27,13 @@ from ..domain.constants import TPU_PLUGIN_NAMESPACE
 NODES_PATH = "/api/v1/nodes"
 PODS_PATH = "/api/v1/pods"
 
+#: Optional server-side pod filter for fleet-scale clusters: completed
+#: pods keep their TPU requests in spec but hold no devices, and on
+#: batch-heavy clusters they dominate the list. Pass it as
+#: ``AcceleratorDataContext(pod_field_selector=...)`` to drop them at the
+#: apiserver.
+ACTIVE_PODS_FIELD_SELECTOR = "status.phase!=Succeeded,status.phase!=Failed"
+
 
 @dataclass(frozen=True)
 class ProviderSource:

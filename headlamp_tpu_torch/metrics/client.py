@@ -13,9 +13,10 @@ Mirrors the reference client's four-stage shape
    answer is known — and the cache self-invalidates when the fan-out
    proves the cached service dead.
 2. **Fan-out** — every candidate series of every logical metric is
-   queried (`metrics.ts:101-116`), folded into matcher-joined batches.
-   The queries run one after another here; the JAX package spreads
-   them over its connection pool. The results are the same.
+   queried (`metrics.ts:101-116`), folded into matcher-joined batches
+   that run in parallel through the process fan-out scheduler
+   (``transport/pool.py``), at a width chosen from the transport's
+   connection pool when it has one, a fixed width otherwise.
 3. **Schema tolerance** — each *logical* metric (tensorcore
    utilization, HBM used/total, memory-bandwidth utilization, duty
    cycle) is a fallback chain of candidate series names, because the
@@ -39,7 +40,9 @@ import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping
 
+from ..obs.trace import span as _span
 from ..transport.api_proxy import ApiError, Transport
+from ..transport.pool import ConnectionPool, fanout, pool_of
 from .timing import FetchTimer
 
 # ---------------------------------------------------------------------------
@@ -401,6 +404,7 @@ def _strip_name_label(sample: Mapping[str, Any]) -> Mapping[str, Any]:
 def _fanout_batched(
     run_query: Callable[[str], list[Mapping[str, Any]]],
     queries: list[str],
+    pool: ConnectionPool | None,
 ) -> dict[str, list[Mapping[str, Any]]]:
     """Run the instant-query fan-out as matcher-joined batches, demuxing
     per-candidate samples by ``__name__``. Batching saves requests and
@@ -411,7 +415,7 @@ def _fanout_batched(
     batch is indistinguishable from that rejection, so only the
     unbatched answer is treated as authoritative."""
     batches = batched_instant_queries(queries)
-    batch_results = [run_query(b[0]) for b in batches]
+    batch_results = fanout.map(run_query, [b[0] for b in batches], pool=pool)
     results: dict[str, list[Mapping[str, Any]]] = {q: [] for q in queries}
     fallback: list[str] = []
     for (_, by_name), samples in zip(batches, batch_results):
@@ -422,8 +426,9 @@ def _fanout_batched(
             target = by_name.get(str(_sample_labels(sample).get("__name__", "")))
             if target is not None:
                 results[target].append(_strip_name_label(sample))
-    for q in fallback:
-        results[q] = run_query(q)
+    if fallback:
+        for q, r in zip(fallback, fanout.map(run_query, fallback, pool=pool)):
+            results[q] = r
     return results
 
 
@@ -448,7 +453,7 @@ def fetch_tpu_metrics(
     issued: list[str] = []
 
     def run_query(promql: str) -> list[Mapping[str, Any]]:
-        issued.append(promql)
+        issued.append(promql)  # list.append is atomic under the GIL
         try:
             data = transport.request(
                 _proxy_query_path(namespace, service, promql), timeout_s
@@ -458,13 +463,15 @@ def fetch_tpu_metrics(
             return []
         return _vector_result(data)
 
-    # Every candidate of every logical metric plus the node map,
-    # batched into matcher-joined queries (two requests instead of
-    # sixteen). Candidate order still decides which result is used.
+    # Every candidate of every logical metric plus the node map, batched
+    # into matcher-joined queries (two requests instead of sixteen) and
+    # fanned out, so one slow series costs max(latency), not the sum.
+    # Candidate order still decides which result is used.
     queries: list[str] = [NODE_MAP_QUERY]
     for candidates in LOGICAL_METRICS.values():
         queries.extend(candidates)
-    results = _fanout_batched(run_query, queries)
+    with _span("metrics.fanout", queries=len(queries), service=service):
+        results = _fanout_batched(run_query, queries, pool_of(transport))
 
     if issued and len(transport_failures) == len(issued):
         # Every query actually issued (batched AND the per-metric

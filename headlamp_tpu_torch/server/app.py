@@ -75,10 +75,21 @@ objective. The generation ledger stamps each sync's scrape and snapshot
 and each generation's first paint. :func:`serve` also starts the
 sampling profiler's thread; the server's ``close()`` stops it.
 
-The gateway, push, replication, workers, the fragment cache, the
-incident timeline and the pages not listed above are not part of this
-host; ``/healthz`` leaves out the keys of the JAX host's that describe
-them.
+Over the socket every GET goes through the app's request gateway
+(:meth:`DashboardApp.ensure_gateway`, ``gateway/``) before it reaches
+:meth:`DashboardApp.handle`: renders run on a bounded pool of workers
+pinned to the app's card, identical concurrent page requests share one
+render, a request whose ``If-None-Match`` holds the page's current ETag
+is a 304 without a render, and while a request-backed objective pages
+the debug surfaces answer 503 and the governed pages render from caches
+only (``X-Headlamp-Stale: 1``, no fit for a cold key). ``/healthz``
+bypasses the gateway. Bodies are gzipped when the client accepts it,
+keyed by the ETag. With a pooled transport (:class:`KubeTransport`)
+``/healthz`` carries the connection pool's counters.
+
+Push, replication, workers, the fragment cache, the incident timeline
+and the pages not listed above are not part of this host; ``/healthz``
+leaves out the keys of the JAX host's that describe them.
 """
 
 from __future__ import annotations
@@ -100,6 +111,7 @@ from ..analytics import stats as rollup_stats
 from ..analytics.encode import _bucket
 from ..context.accelerator_context import AcceleratorDataContext, ClusterSnapshot
 from ..device import DeviceLike, resolve_device
+from ..gateway import RenderGateway, degraded_active, set_active
 from ..history import HistoryStore, set_active_store
 from ..metrics.client import TpuMetricsSnapshot, fetch_tpu_metrics
 from ..models import aot
@@ -114,11 +126,13 @@ from ..obs.metrics import registry as metrics_registry
 from ..obs.profiler import attribution, profiler
 from ..obs.trace import annotate, current_trace_id, span, trace_request, trace_ring
 from ..pages.native import native_node_page, native_pod_page
+from ..push.conditional import encode_body
 from ..registration import Registry, register_plugin
 from ..runtime.device_cache import warm_carries
 from ..runtime.refresh import Refresher
 from ..runtime.transfer import TransferBatch, transfer_stats
 from ..transport.api_proxy import Transport
+from ..transport.pool import pool_of
 from ..ui import Element, render_html
 from .style import STYLESHEET
 
@@ -222,6 +236,7 @@ class DashboardApp:
         min_sync_interval_s: float = 5.0,
         clock: Callable[[], float] = time.time,
         monotonic: Callable[[], float] = time.monotonic,
+        pod_field_selector: str | None = None,
     ) -> None:
         self._device = resolve_device(device)
         self._transport = transport
@@ -230,7 +245,13 @@ class DashboardApp:
         self._mono = monotonic
         #: The cluster snapshot every page reads; it owns the snapshot's
         #: device-resident fleet columns (``self._ctx.fleet_cache``).
-        self._ctx = AcceleratorDataContext(transport, device=self._device, clock=clock)
+        #: ``pod_field_selector`` filters the pod list at the apiserver.
+        self._ctx = AcceleratorDataContext(
+            transport, device=self._device, clock=clock, pod_field_selector=pod_field_selector
+        )
+        #: The request gateway the socket server routes through, built on
+        #: first use (:meth:`ensure_gateway`); None for a direct caller.
+        self.gateway: RenderGateway | None = None
         #: The card the background loop works on, fixed here: its thread
         #: starts with no CUDA context and must not land on another card.
         self._cuda_index: int | None = None
@@ -517,6 +538,12 @@ class DashboardApp:
         monotonic clock since the last, else the current snapshot
         (coalesced)."""
         with span("sync.snapshot"):
+            if degraded_active() and self._last_snapshot is not None:
+                # A gateway-degraded render paints the last published
+                # snapshot and never syncs behind the overload; only the
+                # first request of the app's life still needs one.
+                annotate(source="degraded-stale")
+                return self._last_snapshot
             if self._background_live():
                 snap = self._last_snapshot
                 if snap is not None:
@@ -560,11 +587,14 @@ class DashboardApp:
         """``fetch_tpu_metrics`` behind its refresher. A failed fetch
         (None) is cached too, so a down Prometheus is not probed on every
         view. The epoch is read before the fetch: a /refresh arriving
-        mid-fetch leaves the entry born stale."""
+        mid-fetch leaves the entry born stale. A gateway-degraded render
+        only peeks: a cold cache paints the no-data state."""
         r = self._metrics_refresher
         # Re-read per call: the class attributes are operator and test knobs.
         r.ttl_s = self.METRICS_TTL_S
         r.grace_s = max(self.METRICS_GRACE_S, self.METRICS_TTL_S)
+        if degraded_active():
+            return r.peek("metrics", epoch=self._cache_epoch)
         return r.get(
             "metrics",
             lambda: fetch_tpu_metrics(self._transport, clock=self._clock),
@@ -575,12 +605,16 @@ class DashboardApp:
         """Forecast view for the metrics page, or None when there are no
         chips or no usable history. A fit that raises propagates: the
         page answers 500 naming it, and never drops the forecast panel
-        in silence."""
+        in silence. A gateway-degraded render only peeks: a cold key
+        paints the page without the forecast panel and launches nothing,
+        and no background refit starts."""
         if metrics is None or not metrics.chips:
             return None
         r = self._forecast_refresher
         r.ttl_s = self.FORECAST_TTL_S
         r.grace_s = max(self.FORECAST_GRACE_S, self.FORECAST_TTL_S)
+        if degraded_active():
+            return r.peek(self._metrics_key(metrics), epoch=self._cache_epoch)
         return r.get(
             self._metrics_key(metrics),
             lambda: self._compute_forecast(metrics),
@@ -655,11 +689,15 @@ class DashboardApp:
             return route_path
         return "other"
 
-    def handle(self, path: str, accept: str | None = None) -> tuple[int, str, str]:
+    def handle(
+        self, path: str, accept: str | None = None, *, gateway_info: dict[str, Any] | None = None
+    ) -> tuple[int, str, str]:
         """(status, content_type, body) for a GET; for a 302 the content
         type slot holds the Location. ``accept`` is the Accept header;
-        only /metricsz reads it. Never raises: an exception becomes a 500
-        page that names it.
+        only /metricsz reads it. ``gateway_info`` is the gateway's
+        admission story (priority class, queue wait, degraded flag),
+        recorded as the trace's ``gateway.admission`` span. Never raises:
+        an exception becomes a 500 page that names it.
 
         Each request runs in its own transfer batch, which counts the
         device-to-host copies it waits for, and its own trace, which
@@ -680,6 +718,11 @@ class DashboardApp:
             route_label
         ):
             try:
+                if gateway_info:
+                    # A zero-length marker: the wait already happened
+                    # before this worker ran; its attributes tell it.
+                    with span("gateway.admission", **gateway_info):
+                        pass
                 with batch.scope():
                     status, content_type, body = self._handle(path, accept)
                     return status, content_type, body
@@ -735,6 +778,11 @@ class DashboardApp:
             (f"refresh.{r.name}", r.counters())
             for r in (self._metrics_refresher, self._forecast_refresher)
         ]
+        if self.gateway is not None:
+            blocks.append(("gateway", self.gateway.counters()))
+        pool = pool_of(self._transport)
+        if pool is not None:
+            blocks.append(("transport", pool.counters()))
         for prefix, counters in blocks:
             for key, value in counters.items():
                 out[f"{prefix}.{key}"] = value
@@ -1029,7 +1077,9 @@ class DashboardApp:
         refreshers, the graph cost ledger and the program registry, the
         context's watch counters, the background loop, the history
         store, the SLO states with the last budget fit's error, the
-        profiler's counters, and the device with its kernel."""
+        profiler's counters, and the device with its kernel; with a
+        gateway its admission counters and queues, with a pooled
+        transport its connection pool."""
         with self._lock:
             background = {
                 **self._background_counters,
@@ -1039,7 +1089,7 @@ class DashboardApp:
             }
         engine, prof = slo_mod.engine(), profiler()
         overhead = prof.overhead_ns_per_sample()
-        return {
+        out: dict[str, Any] = {
             "transfer": transfer_stats.snapshot(),
             "fleet_cache": self._ctx.fleet_cache.snapshot(),
             "watch": {track: dict(c) for track, c in self._ctx.watch_stats.items()},
@@ -1066,6 +1116,12 @@ class DashboardApp:
             },
             "device": self._device_health(),
         }
+        if self.gateway is not None:
+            out["gateway"] = self.gateway.snapshot()
+        pool = pool_of(self._transport)
+        if pool is not None:
+            out["transport"] = pool.snapshot()
+        return out
 
     def _device_health(self) -> dict[str, Any]:
         """Where the forecast runs: the torch device, the card's name (on
@@ -1091,19 +1147,49 @@ class DashboardApp:
     # Lifetime
     # ------------------------------------------------------------------
 
+    def ensure_gateway(self, **overrides: Any) -> RenderGateway:
+        """The app's request gateway, built on first use (``overrides`` go
+        to :class:`RenderGateway`: workers, queue depths, timeouts, the
+        SLO engine). :func:`serve` calls it, so the socket path always
+        goes through it; a direct :meth:`handle` call stays the seam of
+        the tests and the CLI. Each render worker runs on the app's card:
+        the current device is per thread."""
+        if self.gateway is None:
+            index = self._cuda_index
+            self.gateway = RenderGateway(
+                self.handle,
+                route_label=self._route_label,
+                generation=self.snapshot_generation,
+                epoch=lambda: self._cache_epoch,
+                monotonic=self._mono,
+                worker_context=(
+                    (lambda: torch.cuda.device(index)) if index is not None
+                    else contextlib.nullcontext
+                ),
+                **overrides,
+            )
+            set_active(self.gateway)
+        return self.gateway
+
     def serve(self, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
         """Serve this app on ``(host, port)``; see :func:`serve`."""
         return serve(self, host, port)
 
     def close(self, timeout_s: float = 30.0) -> None:
-        """Stop the background loop and join its thread, wait for every
-        refit in flight (the SLO engine's budget fit too) and join its
-        thread, join the context's reactive worker, then drop the
-        process's warm carries and the snapshot's device columns and wait
-        for the card's queued work, so nothing this app started is still
-        running (the loop is joined first, so a late warm cannot
-        republish columns after the drop). Raises TimeoutError if a
-        thread outlives ``timeout_s``."""
+        """Stop the gateway and join its render workers, stop the
+        background loop and join its thread, wait for every refit in
+        flight (the SLO engine's budget fit too) and join its thread,
+        join the context's reactive worker, then drop the process's warm
+        carries and the snapshot's device columns and wait for the card's
+        queued work, so nothing this app started is still running (the
+        loop is joined first, so a late warm cannot republish columns
+        after the drop). Raises TimeoutError if a thread outlives
+        ``timeout_s``."""
+        gateway = self.gateway
+        if gateway is not None:
+            if not gateway.close(timeout_s):
+                raise TimeoutError(f"the gateway's render workers outlived {timeout_s} s")
+            set_active(None)
         with self._bg_lock:
             stop = self._background_stop
             threads = list(self._background_threads)
@@ -1170,29 +1256,60 @@ class DashboardServer:
 
 def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
     """Bind ``(host, port)`` (port 0 picks a free one) and serve ``app``
-    on a ``ThreadingHTTPServer``, one thread per request; start the
-    process's program registry capturing its startup set on the app's
-    device on a background thread (`app.py:1745-1755` of the JAX host;
-    a no-op once started), and the sampling profiler's thread
-    (`app.py:1741`). Requests that arrive before the registry is ready
-    run their programs eagerly. Building an app never starts either.
-    Returns the running server; its ``close()`` stops everything it
-    started."""
+    on a ``ThreadingHTTPServer``: each request thread hands its GET to
+    the app's gateway (:meth:`DashboardApp.ensure_gateway`, `app.py:1757-1810`
+    of the JAX host) and waits; a 304 goes out without a body, a 200 is
+    gzipped when the client accepts it. Start the process's program
+    registry capturing its startup set on the app's device on a
+    background thread (`app.py:1745-1755`; a no-op once started), and the
+    sampling profiler's thread (`app.py:1741`). Requests that arrive
+    before the registry is ready run their programs eagerly. Building an
+    app never starts either. Returns the running server; its ``close()``
+    stops everything it started."""
+    gateway = app.ensure_gateway()
     aot.registry().compile_startup(app.device)
     profiler().start()
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self) -> None:  # noqa: N802 (http.server API)
-            status, content_type, body = app.handle(self.path, self.headers.get("Accept"))
+            response = gateway.handle(
+                self.path,
+                accept=self.headers.get("Accept"),
+                if_none_match=self.headers.get("If-None-Match"),
+            )
+            status, content_type, body = response[:3]
             if status == 302:
                 self.send_response(302)
                 self.send_header("Location", content_type)
                 self.end_headers()
                 return
+            if status == 304:
+                # RFC 7232: no body and no Content-Type, only the
+                # validators the gateway stamped.
+                self.send_response(304)
+                for name, value in response.headers:
+                    self.send_header(name, value)
+                self.end_headers()
+                return
             data = body.encode()
+            encoding = None
+            if status == 200:
+                # The strong ETag keys the gzip output cache.
+                etag = next((v for n, v in response.headers if n.lower() == "etag"), None)
+                data, encoding = encode_body(
+                    data, self.headers.get("Accept-Encoding"), etag=etag
+                )
             self.send_response(status)
             self.send_header("Content-Type", f"{content_type}; charset=utf-8")
+            if status == 200:
+                # The representation varies by negotiation even when this
+                # response went out as identity.
+                self.send_header("Vary", "Accept-Encoding")
+            if encoding is not None:
+                self.send_header("Content-Encoding", encoding)
             self.send_header("Content-Length", str(len(data)))
+            for name, value in response.headers:
+                self.send_header(name, value)
             self.end_headers()
             self.wfile.write(data)
 

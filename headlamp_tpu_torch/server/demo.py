@@ -3,18 +3,21 @@
 The TPU part of ``headlamp_tpu/server/app.py``'s demo mode — the
 zero-cluster path for demos, verification and the chip smoke run. The
 series are the same deterministic functions of the fleet as the JAX
-package's, so both packages serve identical metrics for a fleet.
+package's, so both packages serve identical metrics for a fleet. Also
+the mode flags the server and the CLI share: a demo fleet, or a real
+apiserver over ``KubeTransport``.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 import urllib.parse
 from typing import Any
 
 from ..fleet import fixtures as fx
 from ..metrics.client import LOGICAL_METRICS, NODE_MAP_QUERY, batched_instant_queries
-from ..transport.api_proxy import MockTransport
+from ..transport.api_proxy import KubeTransport, MockTransport, Transport
 
 #: Demo fleet name -> fixture generator.
 DEMO_FLEETS = {
@@ -126,3 +129,27 @@ def add_demo_prometheus(t: MockTransport, fleet: dict[str, Any]) -> MockTranspor
     t.add_prefix(f"{_PROM}/query_range", range_response)
     t.add_prefix(f"{_PROM}/query", _vec([]))
     return t
+
+
+def transport_from_args(
+    parser: argparse.ArgumentParser, args: argparse.Namespace
+) -> tuple[Transport, str]:
+    """The transport the mode flags name and a label for it: one of
+    ``--demo``, ``--apiserver`` and ``--in-cluster`` (the demo fleet
+    ``v5p32`` when none is given)."""
+    modes = [bool(args.demo), bool(args.apiserver), bool(args.in_cluster)]
+    if sum(modes) > 1:
+        parser.error("choose one of --demo, --apiserver URL, --in-cluster")
+    if args.in_cluster:
+        return KubeTransport.in_cluster(), "in-cluster"
+    if args.apiserver:
+        return KubeTransport(args.apiserver), args.apiserver
+    demo = args.demo or "v5p32"
+    return make_demo_transport(demo), f"demo fleet '{demo}'"
+
+
+def add_mode_arguments(parser: argparse.ArgumentParser) -> None:
+    """``--demo [FLEET]``, ``--apiserver URL`` and ``--in-cluster``."""
+    parser.add_argument("--demo", nargs="?", const="v5p32", choices=sorted(DEMO_FLEETS), default=None)
+    parser.add_argument("--apiserver", default=None, help="kube-apiserver base URL (e.g. kubectl proxy)")
+    parser.add_argument("--in-cluster", action="store_true", help="service-account auth inside a pod")

@@ -10,19 +10,30 @@ JAX package's transport that the dashboard needs:
 - :class:`WatchFeed` — mock apiserver state for one watchable list:
   paginated LISTs stamped with a ``resourceVersion``, watch deltas since
   a cursor, 410 Gone after :meth:`WatchFeed.compact`.
+- :func:`with_timeout` — a hard wall-clock cap on any callable (the
+  reference's ``withTimeout``).
+- :class:`KubeTransport` — real HTTP against an apiserver base URL
+  (``kubectl proxy``, or in-cluster with the service account's bearer
+  token), over the keep-alive :class:`~headlamp_tpu_torch.transport.pool.ConnectionPool`,
+  so repeated calls reuse sockets instead of paying a handshake each.
 - :class:`MockTransport` — the test and demo double: path -> canned
   response / exception / callable, with call recording, failure
   overrides and watchable lists.
-
-The real HTTP transport (``KubeTransport``) and its connection pool are
-not part of this package yet.
 """
 
 from __future__ import annotations
 
+import contextvars
+import http.client
 import inspect
+import json
+import ssl
+import threading
 import urllib.parse
-from typing import Any, Mapping, Protocol
+from typing import Any, Callable, Mapping, Protocol
+
+from ..obs.metrics import registry as _metrics_registry
+from .pool import ConnectionPool, PoolExhausted
 
 #: Default per-request timeout (the reference's 2 000 ms).
 DEFAULT_TIMEOUT_S = 2.0
@@ -37,13 +48,176 @@ class ApiError(Exception):
         self.status = status
 
 
+class RequestTimeout(ApiError):
+    """The request exceeded its wall-clock budget."""
+
+    def __init__(self, path: str, timeout_s: float) -> None:
+        super().__init__(path, f"timed out after {timeout_s:g}s")
+        self.timeout_s = timeout_s
+
+
 class Transport(Protocol):
     """Single entry point for cluster JSON requests."""
 
     def request(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> Any:
         """GET ``path`` and return parsed JSON. Raises :class:`ApiError`
-        on failure; never returns partial data."""
+        (or :class:`RequestTimeout`) on failure; never returns partial
+        data."""
         ...
+
+
+class WatchTransport(Protocol):
+    """Optional transport extension: a bounded Kubernetes watch. The
+    request (``?watch=true&resourceVersion=N&timeoutSeconds=S``) is a GET
+    whose body is newline-delimited JSON events the apiserver streams
+    until ``timeoutSeconds`` elapse, served as a batch delta poll. The
+    context re-lists when a transport lacks this method."""
+
+    def watch(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> list[Any]:
+        """The stream's parsed events in arrival order. Raises
+        :class:`ApiError` on failure (410 means the caller re-lists)."""
+        ...
+
+
+_ABANDONED = _metrics_registry.counter(
+    "headlamp_tpu_torch_transport_abandoned_calls_total",
+    "Calls with_timeout gave up on; each keeps running on its own thread to its end.",
+)
+
+
+def with_timeout(fn: Callable[[], Any], timeout_s: float, path: str = "") -> Any:
+    """Run ``fn`` with a hard wall-clock cap (the reference's
+    ``withTimeout``). On expiry raise :class:`RequestTimeout`; the
+    abandoned call runs on in its daemon thread, counted in
+    ``headlamp_tpu_torch_transport_abandoned_calls_total``, and its result
+    is dropped. One fresh thread per call, not a shared pool: a socket
+    timeout does not cover DNS resolution, and a stalled resolver would
+    exhaust a bounded pool. The call runs under the caller's copied
+    contextvars, so the pool's spans land in the request's trace."""
+    outcome: dict[str, Any] = {}
+    ctx = contextvars.copy_context()
+
+    def runner() -> None:
+        try:
+            outcome["value"] = ctx.run(fn)
+        except BaseException as e:  # noqa: BLE001 — re-raised in the caller
+            outcome["error"] = e
+
+    thread = threading.Thread(target=runner, daemon=True, name="hl-torch-timeout")
+    thread.start()
+    thread.join(timeout_s)
+    if thread.is_alive():
+        _ABANDONED.inc()
+        raise RequestTimeout(path, timeout_s)
+    if "error" in outcome:
+        raise outcome["error"]
+    return outcome.get("value")
+
+
+class KubeTransport:
+    """Real apiserver transport over pooled keep-alive HTTP.
+
+    ``base_url`` is ``http://127.0.0.1:8001`` behind ``kubectl proxy`` (no
+    auth), or ``https://kubernetes.default.svc`` in a pod with the service
+    account's ``bearer_token`` and ``ca_cert``. Every request runs over
+    :attr:`pool` (one per transport, injectable), so a warm scrape→paint
+    reuses the sockets the previous one opened. The response is closed on
+    every exit path, the non-2xx raises included."""
+
+    #: The service account's mount inside a pod.
+    SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
+
+    def __init__(
+        self,
+        base_url: str,
+        *,
+        bearer_token: str | None = None,
+        ca_cert: str | None = None,
+        insecure_skip_verify: bool = False,
+        pool: ConnectionPool | None = None,
+    ) -> None:
+        self.base_url = base_url.rstrip("/")
+        self.pool = pool if pool is not None else ConnectionPool()
+        self._headers: dict[str, str] = {"Accept": "application/json"}
+        if bearer_token:
+            self._headers["Authorization"] = f"Bearer {bearer_token}"
+        self._ssl_context: ssl.SSLContext | None = None
+        if ca_cert:
+            self._ssl_context = ssl.create_default_context(cafile=ca_cert)
+        elif insecure_skip_verify:
+            ctx = ssl.create_default_context()
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+            self._ssl_context = ctx
+
+    @classmethod
+    def in_cluster(cls) -> KubeTransport:
+        """Build from the standard in-cluster service-account mount."""
+        sa = cls.SERVICE_ACCOUNT_DIR
+        with open(f"{sa}/token", encoding="utf-8") as f:
+            token = f.read().strip()
+        return cls("https://kubernetes.default.svc", bearer_token=token, ca_cert=f"{sa}/ca.crt")
+
+    def _url(self, path: str) -> str:
+        return self.base_url + (path if path.startswith("/") else "/" + path)
+
+    def request(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> Any:
+        url = self._url(path)
+
+        def do_request() -> Any:
+            try:
+                with self.pool.request(
+                    url, headers=self._headers, timeout_s=timeout_s, context=self._ssl_context
+                ) as resp:
+                    # Read the body before the status check: a drained
+                    # response is what returns the connection to the pool.
+                    body = resp.read()
+                    if not 200 <= resp.status < 300:
+                        raise ApiError(path, f"HTTP {resp.status}", status=resp.status)
+            except PoolExhausted as e:
+                raise ApiError(path, f"connection pool exhausted: {e}") from e
+            except (OSError, http.client.HTTPException) as e:
+                # Refused connect, reset mid-read, truncated chunk, TLS
+                # failure: callers see ApiError, never a socket exception.
+                raise ApiError(path, f"request failed: {e}") from e
+            try:
+                return json.loads(body)
+            except json.JSONDecodeError as e:
+                raise ApiError(path, f"invalid JSON: {e}") from e
+
+        return with_timeout(do_request, timeout_s, path)
+
+    def watch(self, path: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> list[Any]:
+        """Bounded watch: read the NDJSON event stream until the server
+        closes it (after the ``timeoutSeconds`` the caller put in
+        ``path``). ``timeout_s`` is the client's budget and must exceed
+        the server's window."""
+        url = self._url(path)
+
+        def do_request() -> list[Any]:
+            events: list[Any] = []
+            try:
+                with self.pool.request(
+                    url, headers=self._headers, timeout_s=timeout_s, context=self._ssl_context
+                ) as resp:
+                    if not 200 <= resp.status < 300:
+                        resp.read()
+                        raise ApiError(path, f"HTTP {resp.status}", status=resp.status)
+                    for raw in resp:
+                        line = raw.strip()
+                        if line:
+                            events.append(json.loads(line))
+            except PoolExhausted as e:
+                raise ApiError(path, f"connection pool exhausted: {e}") from e
+            except (OSError, http.client.HTTPException) as e:
+                # A stream cut mid-body surfaces as ApiError, so the
+                # context falls back to a re-list.
+                raise ApiError(path, f"watch stream failed: {e}") from e
+            except json.JSONDecodeError as e:
+                raise ApiError(path, f"invalid watch JSON: {e}") from e
+            return events
+
+        return with_timeout(do_request, timeout_s, path)
 
 
 class WatchFeed:

@@ -1,12 +1,22 @@
-"""The repo's injected-clock gate (``WCK001``,
-``tools/analysis/rules/wall_clock.py``) held over the port's injected-clock
-trees, through the analysis engine with the rule's scope pointed at
-``headlamp_tpu_torch`` (the rule's own scope names only the JAX package,
-and ``tools/`` stays as it is): every TTL, age, burn, retention and
-sampling decision in the port's ``obs``, ``history``, ``runtime`` and
-``transport`` runs on an injected clock, so the gate finds nothing.
-A scratch tree with one inline wall-clock read shows the scoped rule is
-live.
+"""The repo's gates held over the port, through the analysis engine with
+each rule's scope pointed at ``headlamp_tpu_torch`` (the rules' own
+scopes name only the JAX package, and ``tools/`` stays as it is):
+
+- the injected-clock gate (``WCK001``, ``tools/analysis/rules/wall_clock.py``):
+  every TTL, age, burn, retention, sampling, queue-wait and idle-eviction
+  decision in the port's ``obs``, ``history``, ``runtime``, ``transport``,
+  ``gateway`` and ``push`` runs on an injected clock;
+- no raw ``urlopen`` outside ``transport/`` (``URL001``): every HTTP call
+  goes through the keep-alive pool;
+- no direct render outside the gateway (``RND001``): nothing but the
+  gateway, the pages, the UI and the host's wiring calls ``.handle()`` or
+  a page renderer;
+- exactly-once SLO observation in the gateway (``OBS001``): no outcome
+  path observes the request-duration histogram twice, and the shed,
+  304 and 5xx paths never do.
+
+Each finds nothing in the port; a scratch tree with one violation shows
+each scoped rule is live.
 """
 
 from __future__ import annotations
@@ -14,10 +24,13 @@ from __future__ import annotations
 import os
 
 from tools.analysis.engine import Engine
+from tools.analysis.rules.direct_render import DirectRenderRule
+from tools.analysis.rules.raw_urlopen import RawUrlopenRule
+from tools.analysis.rules.slo_observation import SloObservationRule
 from tools.analysis.rules.wall_clock import WallClockRule
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_SCOPES = ("obs", "history", "runtime", "transport")
+PORT_SCOPES = ("obs", "history", "runtime", "transport", "gateway", "push")
 
 
 def _port_rule(package: str = "headlamp_tpu_torch") -> WallClockRule:
@@ -35,6 +48,9 @@ def test_the_port_passes_the_wall_clock_gate():
         assert f"headlamp_tpu_torch/obs/{module}" in scanned, module
     assert "headlamp_tpu_torch/history/store.py" in scanned
     assert "headlamp_tpu_torch/runtime/refresh.py" in scanned
+    for module in ("gateway/pool.py", "gateway/shed.py", "transport/pool.py",
+                   "push/conditional.py"):
+        assert f"headlamp_tpu_torch/{module}" in scanned, module
     assert not any(p.startswith("headlamp_tpu_torch/server/") for p in scanned)
 
 
@@ -49,4 +65,66 @@ def test_the_scoped_rule_flags_an_inline_wall_clock_read(tmp_path):
     result = Engine(rules=[_port_rule("pkg")], root=str(tmp_path)).run()
     assert [(d.rule, d.path, d.line) for d in result.diagnostics] == [
         ("WCK001", "pkg/obs/bad.py", 4)
+    ]
+
+
+def _run(rule, root=REPO):
+    result = Engine(rules=[rule], root=root).run()
+    return result, [(d.rule, d.path, d.line) for d in result.diagnostics]
+
+
+def test_the_port_makes_no_raw_urlopen_call_outside_its_transport(tmp_path):
+    rule = RawUrlopenRule()
+    rule.top_dirs = ("headlamp_tpu_torch",)
+    rule.exempt_dirs = ("headlamp_tpu_torch/transport",)
+    result, found = _run(rule)
+    assert found == [], "\n".join(str(d) for d in result.diagnostics)
+    assert "headlamp_tpu_torch/metrics/client.py" in result.parse_counts
+    assert not any(p.startswith("headlamp_tpu_torch/transport/") for p in result.parse_counts)
+    pkg = tmp_path / "pkg"
+    (pkg / "transport").mkdir(parents=True)
+    (pkg / "transport" / "ok.py").write_text("import urllib.request\nurllib.request.urlopen\n")
+    (pkg / "fetch.py").write_text("from urllib.request import urlopen\nurlopen('x')\n")
+    rule.top_dirs, rule.exempt_dirs = ("pkg",), ("pkg/transport",)
+    assert _run(rule, str(tmp_path))[1] == [("URL001", "pkg/fetch.py", 2)]
+
+
+def test_only_the_gateway_and_the_host_reach_the_render_path(tmp_path):
+    rule = DirectRenderRule()
+    rule.top_dirs = ("headlamp_tpu_torch",)
+    rule.exempt_dirs = tuple(f"headlamp_tpu_torch/{d}" for d in ("gateway", "ui", "pages"))
+    rule.exempt_files = ("headlamp_tpu_torch/server/app.py",)
+    result, found = _run(rule)
+    assert found == [], "\n".join(str(d) for d in result.diagnostics)
+    for module in ("cli.py", "server/standin.py", "obs/debug_pages.py", "history/record.py"):
+        assert f"headlamp_tpu_torch/{module}" in result.parse_counts, module
+    (tmp_path / "pkg").mkdir()
+    (tmp_path / "pkg" / "bad.py").write_text("def serve(app):\n    return app.handle('/tpu')\n")
+    rule.top_dirs, rule.exempt_dirs, rule.exempt_files = ("pkg",), (), ()
+    assert _run(rule, str(tmp_path))[1] == [("RND001", "pkg/bad.py", 2)]
+
+
+def test_the_ports_gateway_observes_each_request_at_most_once(tmp_path):
+    rule = SloObservationRule()
+    rule.top_dirs = ("headlamp_tpu_torch",)
+    rule.scope_dirs = ("headlamp_tpu_torch/gateway/",)
+    result, found = _run(rule)
+    assert found == [], "\n".join(str(d) for d in result.diagnostics)
+    assert "headlamp_tpu_torch/gateway/gateway.py" in result.parse_counts
+    gw = tmp_path / "pkg" / "gateway"
+    gw.mkdir(parents=True)
+    (gw / "bad.py").write_text(
+        "class GatewayResponse:\n    pass\n\n\n"
+        "class G:\n"
+        "    def handle(self, shed):\n"
+        "        self._req_hist.observe(1.0)\n"
+        "        if shed:\n"
+        "            return GatewayResponse(503, 'text/plain', '')\n"
+        "        self._req_hist.observe(1.0)\n"
+        "        return GatewayResponse(200, 'text/html', 'ok')\n"
+    )
+    rule = SloObservationRule()
+    rule.top_dirs, rule.scope_dirs = ("pkg",), ("pkg/gateway/",)
+    assert _run(rule, str(tmp_path))[1] == [
+        ("OBS001", "pkg/gateway/bad.py", 9), ("OBS001", "pkg/gateway/bad.py", 11)
     ]

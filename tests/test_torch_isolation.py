@@ -78,3 +78,15 @@ def test_package_imports_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_the_gateway_push_and_the_connection_pool_are_held_too():
+    """The stdlib-only modules the port copies from JAX's ``gateway/``,
+    ``push/conditional.py`` and ``transport/pool.py`` are the port's own:
+    each group is scanned above and imports nothing of the JAX package."""
+    groups = _source_groups()
+    names = {g: {p.name for p in groups[g]} for g in ("gateway", "push", "transport")}
+    assert {"gateway.py", "pool.py", "coalesce.py", "shed.py"} <= names["gateway"]
+    assert "conditional.py" in names["push"]
+    assert {"pool.py", "api_proxy.py"} <= names["transport"]
+    assert {"standin.py"} <= {p.name for p in groups["server"]}

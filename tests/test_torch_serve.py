@@ -19,6 +19,7 @@ import torch
 from headlamp_tpu.obs.metrics import registry as jax_registry
 from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.models import fused_forward as ff
+from headlamp_tpu_torch.obs import slo as slo_mod
 from headlamp_tpu_torch.obs.metrics import MetricRegistry
 from headlamp_tpu_torch.obs.metrics import registry as port_registry
 from headlamp_tpu_torch.obs.trace import trace_ring
@@ -253,6 +254,9 @@ def test_socket_round_trip_leaves_no_thread_running(monkeypatch):
     # test, so the rest of the process keeps its eager path.
     reg = aot.AotProgramRegistry()
     monkeypatch.setattr(aot, "_REGISTRY", reg)
+    # The gateway sheds off the process SLO engine: a fresh one, so the
+    # 5xx other tests in this process served cannot degrade these renders.
+    monkeypatch.setattr(slo_mod, "_engine", slo_mod.SLOEngine())
     warm_carries.invalidate()
     mono = [0.0]
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock,
