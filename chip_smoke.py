@@ -40,9 +40,12 @@ are checked over the socket. Then the request gateway every socket request
 now goes through: a saturation curve, sixteen identical cold requests as
 one render and one kernel launch, a 304, shedding and a degraded render
 that launches nothing; and the pooled ``KubeTransport`` against a local
-stand-in apiserver, painting what the demo transport paints. It exits
-non-zero at the first failure, and without CUDA or without the package
-beside it.
+stand-in apiserver, painting what the demo transport paints. Then push
+and the fragment cache: a node flip served to 34 ``/events`` clients as
+one diff and one frame each, with no render and no launch, the differ's
+region cells against the card's region rollup, resume, shedding, and
+fragment paints byte-identical to plain ones. It exits non-zero at the
+first failure, and without CUDA or without the package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -56,6 +59,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.parse
@@ -187,6 +191,15 @@ MIN_REUSE_RATE = 0.9
 #: restored render after the degraded one, the demo and KubeTransport
 #: paints, and one fit per fresh app of the warm paints on each transport.
 GATEWAY_LAUNCHES = 1 + 1 + 1 + 2 + 2 * TRANSPORT_PAINTS
+#: The push step: the fleet (``fleet_viewport``, 8 clusters), interactive
+#: /events clients, warm rounds of the five pages timed with fragments on
+#: and off, and its launches: the first /tpu/metrics, the fragment apps'
+#: one shared fit, and the refit forced by /refresh.
+PUSH_NODES = 1024
+PUSH_CLIENTS = 32
+PUSH_WARM_ROUNDS = 9
+FIVE_PAGES = ("/tpu", "/tpu/nodes", "/tpu/pods", "/tpu/metrics", "/tpu/fleet")
+PUSH_LAUNCHES = 3
 #: The two measured durations a metrics page prints (masked to compare).
 PAGE_TIMINGS = re.compile(r"(history in|took) [0-9.e+-]+ ms")
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
@@ -1120,7 +1133,7 @@ def history_forecast_phase(torch: Any, clock: Callable[[], float], smi: str) -> 
         cold_ms = (time.perf_counter() - t0) * 1e3
         cold = forecast_view()
         history = app.history.utilization_history(clock=clock, min_points=cfg.window + cfg.horizon)
-        check(status == 200 and "history history" in body and cold.data_source == "history"
+        check(status == 200 and "of captured history in" in body and cold.data_source == "history"
               and cold.inference_path == "cuda" and len(cold.chips) == 64,
               f"cold history GET: {status}, {cold.data_source}, {cold.inference_path}")
         mono[0] += app.FORECAST_TTL_S + 1
@@ -2423,6 +2436,354 @@ def gateway_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int
     return launches, out
 
 
+def _paging_engine(slo: Any) -> Any:
+    """An SLO engine of its own on which dashboard_render and scrape_paint
+    page (600 failed observations each on a frozen clock)."""
+    eng = slo.SLOEngine(monotonic=lambda: 1000.0)
+    for objective in ("dashboard_render", "scrape_paint"):
+        for _ in range(600):
+            eng.record(objective, False)
+    check(eng.health_block()["scrape_paint"] == "page", "the storm did not page")
+    return eng
+
+
+class _SseClient:
+    """One ``/events`` connection, read event by event on its socket
+    (heartbeat comments skipped)."""
+
+    def __init__(self, port: int, path: str, headers: dict[str, str] | None = None) -> None:
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        self.conn.request("GET", path, headers=headers or {})
+        self.resp = self.conn.getresponse()
+        check(self.resp.status == 200
+              and self.resp.getheader("Content-Type") == "text/event-stream",
+              f"GET {path}: {self.resp.status} {self.resp.getheader('Content-Type')}")
+
+    def next_event(self) -> dict[str, Any]:
+        """The next event's fields (``id``, ``event``, ``data`` parsed) and
+        its size on the wire in ``bytes``."""
+        lines: list[str] = []
+        size = 0
+        while True:
+            raw = self.resp.fp.readline()
+            check(raw != b"", "an /events stream ended early")
+            size += len(raw)
+            line = raw.decode().rstrip("\n")
+            if line:
+                lines.append(line)
+                continue
+            fields = [x for x in lines if not x.startswith(":")]
+            if fields:
+                event: dict[str, Any] = dict(x.split(": ", 1) for x in fields)
+                event["data"] = json.loads(event["data"])
+                event["bytes"] = size
+                return event
+            lines, size = [], 0  # a heartbeat
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _flip_ready(app: Any, transport: Any, index: int) -> str:
+    """Push a MODIFIED event that flips one node's Ready condition."""
+    node = json.loads(json.dumps(app._last_snapshot.provider("tpu").nodes[index]))
+    for cond in node["status"]["conditions"]:
+        if cond["type"] == "Ready":
+            cond["status"] = "False" if cond["status"] == "True" else "True"
+    transport.node_feed.push("MODIFIED", node)
+    return node["metadata"]["name"]
+
+
+def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 19: push and the fragment cache at ``fleet_viewport(1024)``
+    with the demo Prometheus, on the card. The host is served with
+    ``serve()`` and a 0.2 s background sync; one /tpu/metrics GET puts a
+    forecast on the card. 32 interactive ``/events`` clients, one region
+    client and one debug client connect one at a time (the listen backlog
+    is 5), and the gateway counts 34 SSE connections with no render
+    worker busy. One node's Ready flip is one diff and one delta per
+    interactive client (id ``g<gen>``, the changed page only), the region
+    client's frame only for its region, with 0 renders, kernel launches,
+    replays or eager programs; the differ's region cells equal the region
+    rollup on the card exactly. A resume one generation back replays the
+    missed delta, one past the backlog repaints each page (``resync``).
+    Under a paging engine the next flip sheds the debug stream (``bye``,
+    ``shed``) and reaches every interactive one. Then two apps on the
+    same fixture and a frozen clock, one painting through its fragment
+    cache and one with ``fragments=False`` (sharing the metrics and
+    forecast refreshers, so both paint one scrape and one fit): warm
+    paints of the five pages are byte-identical, the hit rate and the
+    5-page p50s on and off are printed, a flip re-renders the changed
+    boundaries of /tpu/nodes, and a refit forced by /refresh re-renders
+    the forecast fragment with one kernel launch. ``server.close()``
+    joins every SSE handler thread. Returns the launches and numbers."""
+    from headlamp_tpu_torch import push as push_mod
+    from headlamp_tpu_torch.analytics.fleet_torch import REGION_CLUSTER_SEGMENTS
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import graphcost, slo
+    from headlamp_tpu_torch.obs.trace import trace_ring
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp
+    from headlamp_tpu_torch.server.demo import add_demo_prometheus
+    from headlamp_tpu_torch.viewport import tree as vt
+
+    def fixture() -> Any:
+        fleet = fleet_viewport(PUSH_NODES)
+        transport = fleet_transport(fleet)
+        add_demo_prometheus(transport, fleet)
+        return transport
+
+    def ledger_kinds() -> tuple[int, int]:
+        programs = graphcost.ledger().snapshot()["programs"].values()
+        return sum(p.get("replays", 0) for p in programs), sum(p.get("eager", 0) for p in programs)
+
+    def diff_seconds() -> tuple[float, int]:
+        child = push_mod._DIFF_SECONDS._children.get(())
+        return (child.sum, child.count) if child is not None else (0.0, 0)
+
+    def sse_threads() -> list[Any]:
+        return [t for t in threading.enumerate() if "process_request_thread" in t.name]
+
+    launches = 0
+    out: dict[str, Any] = {}
+    t_step = time.perf_counter()
+    warm_carries.invalidate()
+    engines = {"now": slo.SLOEngine()}
+    transport = fixture()
+    app = DashboardApp(transport, device="cuda", clock=clock, min_sync_interval_s=3600.0)
+    gateway = app.ensure_gateway(engine=lambda: engines["now"])
+    server = app.serve("127.0.0.1", 0)
+    port = int(server.url.rsplit(":", 1)[1])
+    clients: list[_SseClient] = []
+    try:
+        app.start_background_sync(LIVE_INTERVAL_S)
+        _wait_for(lambda: app._background_counters["ticks"] >= 1, "the hydrating tick")
+        LAUNCHES.reset()
+        check(http_get(server.url + "/tpu/metrics")[0] == 200, "GET /tpu/metrics")
+        torch.cuda.synchronize()
+        check(LAUNCHES.n == 1 and app._peek_forecast() is not None,
+              f"the first /tpu/metrics launched {LAUNCHES.n} times")
+        launches += LAUNCHES.n
+        # The baseline models were built before any metrics were cached:
+        # one flip first, so the metrics model diffs with its peeks from
+        # here on and the measured flip changes /tpu/nodes alone.
+        diffs = app.push.counters()["diffs"]
+        _flip_ready(app, transport, 3)
+        app._background_wake.set()
+        _wait_for(lambda: app.push.counters()["diffs"] == diffs + 1, "the warm-up diff")
+
+        # Streams, one connect at a time.
+        interactive = [_SseClient(port, "/events") for _ in range(PUSH_CLIENTS)]
+        clients += interactive
+        flip_index = 7
+        node_name = app._last_snapshot.provider("tpu").nodes[flip_index]["metadata"]["name"]
+        cluster, _ = vt.node_region(app._last_snapshot.provider("tpu").nodes[flip_index])
+        region_page = f"region:cluster/{cluster}"
+        region = _SseClient(port, f"/events?region=cluster/{cluster}")
+        debug = _SseClient(port, "/events?class=debug")
+        clients += [region, debug]
+        health = json.loads(http_get(server.url + "/healthz")[1])["runtime"]
+        check(health["gateway"]["sse_connections"] == PUSH_CLIENTS + 2
+              and health["gateway"]["inflight_renders"] == 0
+              and health["push"]["connected"] == PUSH_CLIENTS + 2,
+              f"/healthz gateway {health['gateway']}, push {health['push']}")
+
+        # One fleet change.
+        before = dict(app.push.counters())
+        renders, kinds, diff_before = gateway.counters()["rendered"], ledger_kinds(), diff_seconds()
+        gen = app.snapshot_generation()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        flipped = _flip_ready(app, transport, flip_index)
+        app._background_wake.set()
+        events = [c.next_event() for c in interactive]
+        fanout_ms = (time.perf_counter() - t0) * 1e3
+        region_event = region.next_event()
+        debug_event = debug.next_event()
+        torch.cuda.synchronize()
+        after = app.push.counters()
+        new_gen = app.snapshot_generation()
+        check(flipped == node_name and new_gen == gen + 1, f"generation {gen} -> {new_gen}")
+        for event in events + [debug_event]:
+            check(event["id"] == f"g{new_gen}" and event["event"] == "delta"
+                  and event["data"]["page"] == "/tpu/nodes"
+                  and list(event["data"]["rows"]) == [node_name]
+                  and event["data"]["cells"] == {} and event["data"]["removed"] == [],
+                  f"an interactive client read {event}")
+        check(region_event["event"] == "delta" and region_event["data"]["page"] == region_page
+              and list(region_event["data"]["rows"]) == [node_name],
+              f"the region client read {region_event}")
+        check(after["diffs"] == before["diffs"] + 1
+              and after["broadcasts"] == before["broadcasts"] + 1
+              and after["frames_sent"] - before["frames_sent"] == PUSH_CLIENTS + 2,
+              f"push counters {before} -> {after}")
+        check(gateway.counters()["rendered"] == renders and LAUNCHES.n == 0
+              and ledger_kinds() == kinds,
+              f"the fan-out rendered {gateway.counters()['rendered'] - renders}, launched "
+              f"{LAUNCHES.n}, ledger {kinds} -> {ledger_kinds()}")
+        diff_after = diff_seconds()
+        diff_ms = (diff_after[0] - diff_before[0]) * 1e3
+        check(diff_after[1] == diff_before[1] + 1,
+              f"diff observations {diff_before} -> {diff_after}")
+        frame_bytes = events[0]["bytes"]
+        out.update(diff_ms=diff_ms, frame_bytes=frame_bytes, fanout_ms=fanout_ms,
+                   region_frame_bytes=region_event["bytes"],
+                   frames=after["frames_sent"] - before["frames_sent"])
+        print(f"push: {PUSH_NODES} nodes, one Ready flip of {node_name}: 1 diff in "
+              f"{diff_ms:.3f} ms (push_diff_seconds), {PUSH_CLIENTS} interactive deltas of "
+              f"{frame_bytes} bytes (page /tpu/nodes only), region {region_page} frame "
+              f"{region_event['bytes']} bytes, debug 1; flip to the last client's delta "
+              f"{fanout_ms:.1f} ms; 0 renders, 0 launches, 0 replays, 0 eager; on {smi}")
+
+        # The differ's region cells against the card's region rollup.
+        snap = app._last_snapshot
+        state = snap.provider("tpu")
+        check(app.push.generation == new_gen and state.view.version == new_gen,
+              f"the differ holds generation {app.push.generation}, the snapshot {new_gen}")
+        region_of, _, _, cluster_id, slice_id = vt._assignments(state.nodes)
+        clusters, slices = vt._device_sums(state, cluster_id, slice_id, region_of,
+                                           REGION_CLUSTER_SEGMENTS)
+        models = app.push._models
+        keys = (("nodes_total", "nodes"), ("nodes_ready", "ready"), ("capacity", "capacity"),
+                ("allocatable", "allocatable"), ("in_use", "in_use"))
+        mismatches = []
+        pairs = [(vt.region_path(ck), clusters[cid]) for ck, cid in cluster_id.items()]
+        pairs += [(vt.region_path(ck, sk), slices[sid]) for (ck, sk), sid in slice_id.items()]
+        for path, stats in pairs:
+            cells = models[push_mod.REGION_PAGE_PREFIX + path]["cells"]
+            if any(cells[a] != stats[b] for a, b in keys):
+                mismatches.append((path, cells, stats))
+        check(not mismatches, f"region cells differ from the card's rollup: {mismatches[:3]}")
+        print(f"push: region cells of {len(cluster_id)} clusters and {len(slice_id)} slices "
+              f"(nodes, ready, capacity, allocatable, in_use) equal the card's region rollup "
+              f"exactly")
+
+        # Resume.
+        replay = _SseClient(port, "/events", {"Last-Event-ID": f"g{new_gen - 1}"})
+        clients.append(replay)
+        missed = replay.next_event()
+        check(missed["id"] == f"g{new_gen}" and missed["event"] == "delta"
+              and missed["data"]["page"] == "/tpu/nodes", f"the resume replayed {missed}")
+        stale = _SseClient(port, "/events", {"Last-Event-ID": "g0"})
+        clients.append(stale)
+        repaints = [stale.next_event() for _ in push_mod.PAGES]
+        check([e["event"] for e in repaints] == ["paint"] * len(push_mod.PAGES)
+              and sorted(e["data"]["page"] for e in repaints) == sorted(push_mod.PAGES)
+              and {e["data"]["reason"] for e in repaints} == {"resync"},
+              f"a resume past the backlog read {repaints}")
+        print(f"push: Last-Event-ID g{new_gen - 1} replays the missed delta; g0 (past the "
+              f"backlog) repaints {len(repaints)} pages with reason resync")
+
+        # Shedding: the next fleet change closes the debug stream only.
+        engines["now"] = _paging_engine(slo)
+        gateway.shed_policy.invalidate()
+        _flip_ready(app, transport, flip_index)
+        app._background_wake.set()
+        bye = debug.next_event()
+        check(bye["event"] == "bye" and bye["data"] == {"reason": "shed"},
+              f"the debug stream read {bye}")
+        nexts = [c.next_event() for c in interactive]
+        check(all(e["id"] == f"g{new_gen + 1}" and e["event"] == "delta" for e in nexts),
+              f"interactive streams after the shed: {sorted({e['id'] for e in nexts})}")
+        engines["now"] = slo.SLOEngine()
+        gateway.shed_policy.invalidate()
+        print(f"push: paging -> the debug stream got bye/shed; all {PUSH_CLIENTS} interactive "
+              f"streams read g{new_gen + 1} next (exactly one delta each before it); hub "
+              f"{app.push.hub.counters()}")
+        handlers = len(sse_threads())
+    finally:
+        t_close = time.perf_counter()
+        server.close()
+        close_ms = (time.perf_counter() - t_close) * 1e3
+        for c in clients:
+            c.close()
+    left = len(sse_threads())
+    check(left == 0, f"{left} SSE handler threads outlived server.close()")
+    out.update(close_ms=close_ms, handlers=handlers)
+    print(f"push: server.close() in {close_ms:.1f} ms joined {handlers} request threads "
+          f"({len(clients)} streams), {left} left")
+
+    # Fragments against the oracle.
+    mono = [7000.0]
+    apps = {}
+    for name, fragments in (("on", True), ("off", False)):
+        apps[name] = DashboardApp(fixture(), device="cuda", clock=clock,
+                                  monotonic=lambda: mono[0], min_sync_interval_s=3600.0,
+                                  fragments=fragments)
+    on, off = apps["on"], apps["off"]
+    # One scrape and one fit for both: the oracle reads the same cached
+    # metrics and forecast, so the measured times in the page are shared.
+    off._metrics_refresher = on._metrics_refresher
+    off._forecast_refresher = on._forecast_refresher
+    try:
+        LAUNCHES.reset()
+        for app_ in (on, off):
+            app_._ctx.enable_watch()
+            app_._background_tick()
+            for path in FIVE_PAGES:
+                check(app_.handle(path)[0] == 200, f"{path} answered")
+        torch.cuda.synchronize()
+        check(LAUNCHES.n == 1, f"the two apps' first paints launched {LAUNCHES.n}")
+        launches += LAUNCHES.n
+        before = on.fragments.counters()
+        times: dict[str, list[float]] = {"on": [], "off": []}
+        for _ in range(PUSH_WARM_ROUNDS):
+            bodies = {}
+            for name, app_ in apps.items():
+                t0 = time.perf_counter()
+                bodies[name] = [app_.handle(path)[2] for path in FIVE_PAGES]
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            check(bodies["on"] == bodies["off"], "a fragment paint differs from the oracle's")
+        after = on.fragments.counters()
+        hits, misses = after["hits"] - before["hits"], after["misses"] - before["misses"]
+        hit_rate = hits / max(hits + misses, 1)
+        p50 = {k: statistics.median(v) for k, v in times.items()}
+        out.update(hit_rate=hit_rate, warm_p50_on_ms=p50["on"], warm_p50_off_ms=p50["off"])
+        print(f"fragments: {PUSH_WARM_ROUNDS} warm rounds of {', '.join(FIVE_PAGES)} "
+              f"byte-identical to fragments=False (no mask: one shared scrape and fit); hit "
+              f"rate {hit_rate:.4f} ({hits} hits, {misses} misses); warm 5-page p50 "
+              f"{p50['on']:.1f} ms with fragments, {p50['off']:.1f} ms without; all "
+              f"{json.dumps(times)}; on {smi}")
+
+        gen = on.snapshot_generation()
+        for app_ in (on, off):
+            _flip_ready(app_, app_._transport, 11)
+            app_._background_tick()
+        changed = on.push.changed_keys("/tpu/nodes", gen)
+        bodies = {name: app_.handle("/tpu/nodes")[2] for name, app_ in apps.items()}
+        splice = next(s for s in trace_ring.snapshot()[1]["spans"]
+                      if s["name"] == "fragment.splice")["attrs"]
+        check(bodies["on"] == bodies["off"] and changed is not None
+              and 1 <= splice["rendered"] <= len(changed) + 1,
+              f"after a flip /tpu/nodes re-rendered {splice} for changed keys {changed}")
+        print(f"fragments: after one flip /tpu/nodes re-rendered {splice['rendered']} boundaries "
+              f"and spliced {splice['spliced']}, for {len(changed)} changed keys {sorted(changed)}")
+
+        misses = on.fragments.counters()["misses"]
+        for app_ in (on, off):
+            check(app_.handle("/refresh?back=/tpu/metrics")[0] == 302, "/refresh")
+        LAUNCHES.reset()
+        bodies = {name: app_.handle("/tpu/metrics")[2] for name, app_ in apps.items()}
+        torch.cuda.synchronize()
+        splice = next(s for s in trace_ring.snapshot()[1]["spans"]
+                      if s["name"] == "fragment.splice")["attrs"]
+        check(bodies["on"] == bodies["off"] and LAUNCHES.n == 1 and splice["rendered"] >= 1
+              and on.fragments.counters()["misses"] > misses,
+              f"the forced refit: {LAUNCHES.n} launches, splice {splice}")
+        launches += LAUNCHES.n
+        print(f"fragments: a refit forced by /refresh launched forecast_mlp_forward "
+              f"{LAUNCHES.n} time and re-rendered {splice['rendered']} boundaries of "
+              f"/tpu/metrics (the new epoch misses every entry), bytes equal to the oracle's")
+    finally:
+        for app_ in apps.values():
+            app_.close()
+    check(launches == PUSH_LAUNCHES, f"the push step launched {launches}, not {PUSH_LAUNCHES}")
+    out["seconds"] = time.perf_counter() - t_step
+    print(f"push: step 19 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def re_cursor(body: str) -> str:
     """The next-window cursor a windowed page links to."""
     found = re.search(r'cursor=([A-Za-z0-9_-]+)" class="hl-res-link hl-cursor-next"', body)
@@ -2720,6 +3081,11 @@ def main() -> int:
     #     coalescing, 304, shedding and degraded renders over the socket,
     #     then KubeTransport against a local stand-in apiserver.
     gateway_launches, _gateway_row = gateway_phase(torch, clock, smi)
+
+    # 19. Push and the fragment cache: the snapshot differ, the SSE hub
+    #     and /events over the socket, and paints through the fragment
+    #     cache against the oracle.
+    push_launches, _push_row = push_phase(torch, clock, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -2748,7 +3114,7 @@ def main() -> int:
         "launches": (page_launches + scale_launches + one_launches + serve_launches
                      + cluster_launches + viewport_launches + live_launches + registry_launches
                      + mesh_launches + replay_launches + telemetry_launches
-                     + gateway_launches),
+                     + gateway_launches + push_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -2760,7 +3126,8 @@ def main() -> int:
                              "mesh": mesh_launches,
                              "record_replay": replay_launches,
                              "slo_self_forecast": telemetry_launches,
-                             "gateway_and_transport": gateway_launches},
+                             "gateway_and_transport": gateway_launches,
+                             "push_and_fragments": push_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -26,9 +26,12 @@ observes its own wait as its duration when the status is below 500: a
 follower is a served request and spends real budget.
 
 The gateway holds callables (handle, route label, generation, epoch),
-not the app, so tests drive it with fakes. The push pipeline's
-attachment and ``traceparent`` forwarding of the JAX gateway are not
-part of this package yet.
+not the app, so tests drive it with fakes. It adopts the app's push
+pipeline (:meth:`RenderGateway.attach_push`): its snapshot then counts
+the SSE connections, which live in the hub and never in the render
+pool, and the hub sheds debug-class streams off this gateway's policy.
+``traceparent`` forwarding of the JAX gateway is not part of this
+package yet.
 """
 
 from __future__ import annotations
@@ -176,6 +179,8 @@ class RenderGateway:
         self.degraded_renders = 0
         self.bypassed = 0
         self.not_modified = 0
+        #: The app's push pipeline once attached (:meth:`attach_push`).
+        self.push: Any = None
 
     # -- classification --------------------------------------------------
 
@@ -381,7 +386,19 @@ class RenderGateway:
         out["coalesce_inflight"] = self.coalescer.inflight()
         out["workers"] = self.pool.workers
         out["burn_state"] = self.shed_policy.states()
+        if self.push is not None:
+            # Streams live in the hub, not in the render pool: this line
+            # is where an operator sees that separation.
+            out["sse_connections"] = self.push.hub.connected()
         return out
+
+    def attach_push(self, pipeline: Any) -> None:
+        """Adopt the push pipeline: the snapshot gains the SSE connection
+        count, and the hub's shed probe becomes this gateway's policy, so
+        debug-class streams close under the same paging burn that sheds
+        /debug requests."""
+        self.push = pipeline
+        pipeline.hub.set_shed_check(self.shed_policy.paging)
 
     def close(self, timeout_s: float = 30.0) -> bool:
         """Stop and join the pool's workers; False if one outlived

@@ -15,9 +15,10 @@ pages,
 
 The engine's state is cached for ``ttl_s`` on the injected monotonic:
 burn windows are minutes wide, and the gateway sits on every request.
-The replica stale-feed probe and the push hub's shed check of the JAX
-policy belong to replication and push, which are not part of this
-package yet.
+:meth:`ShedPolicy.paging` is the push hub's shed check: the same
+condition closes debug-class ``/events`` streams. The replica stale-feed
+probe of the JAX policy belongs to replication, which is not part of
+this package yet.
 """
 
 from __future__ import annotations
@@ -150,6 +151,14 @@ class ShedPolicy:
             self._notify("degrade", route=route, reason="burn_rate")
             return Decision(degraded=True, burn_state=states)
         return Decision(burn_state=states)
+
+    def paging(self) -> bool:
+        """Is any request-backed objective paging now? The push hub's
+        shed probe: the condition that sheds /debug requests also closes
+        debug-class SSE streams. It rides the states() TTL cache, so
+        long-lived streams can poll it freely."""
+        self.states()
+        return bool(self._paging_routes)
 
     def invalidate(self) -> None:
         """Drop the TTL cache (the next ruling re-reads the engine)."""

@@ -126,6 +126,54 @@ def no_data_box(snap: TpuMetricsSnapshot) -> Element:
     )
 
 
+def _availability_salt(snap: TpuMetricsSnapshot | None) -> Any:
+    """Every input :func:`availability_matrix` paints, so a cached
+    matrix can never be stale even where push invalidation misses."""
+    if snap is None:
+        return None
+    return (
+        tuple(sorted(snap.availability.items())),
+        tuple(sorted(snap.resolved_series.items())),
+    )
+
+
+def _chip_salt(chip: Any) -> tuple:
+    """Everything :func:`chip_card` renders, in one comparable tuple."""
+    return (
+        chip.node,
+        chip.accelerator_id,
+        chip.tensorcore_utilization,
+        chip.memory_bandwidth_utilization,
+        chip.hbm_bytes_used,
+        chip.hbm_bytes_total,
+        chip.duty_cycle,
+    )
+
+
+def _forecast_salt(view: Any) -> tuple:
+    """Every input :func:`forecast_section` paints. ``fit_ms`` is in it
+    on purpose (a refit changes the hint, so the section re-renders on a
+    refit and hits between them), and so is ``inference_path``: the
+    label names the dispatch path, so a cached section never outlives a
+    change between ``cuda``, ``cuda-warm`` and ``repeat``."""
+    return (
+        view.horizon_s,
+        view.window_s,
+        view.fit_ms,
+        view.fit_mse,
+        view.data_source,
+        view.inference_path,
+        view.inference_fallback_reason,
+        len(view.at_risk),
+        tuple((c.node, c.accelerator_id, c.saturation_risk) for c in view.at_risk[:5]),
+        tuple(
+            (c.node, c.accelerator_id, c.current, c.predicted_peak, c.predicted_mean,
+             c.saturation_risk)
+            for c in view.chips[:16]
+        ),
+    )
+
+
 def chip_card(chip: Any) -> Element:
     rows: list[tuple[str, Any]] = []
     if chip.tensorcore_utilization is not None:
@@ -201,8 +249,8 @@ def forecast_section(view: Any) -> Element:
             "p",
             {"class_": "hl-hint"},
             f"Model fit on the last {round(view.window_s / 60)} min of "
-            f"{view.data_source} history in {view.fit_ms:g} ms "
-            "(online MLP, deterministic seed"
+            + _data_source_label(view)
+            + f" in {view.fit_ms:g} ms (online MLP, deterministic seed"
             + (
                 # :g keeps tiny well-fit MSEs legible (1.2e-06, not
                 # the indistinguishable 0.0000).
@@ -213,6 +261,14 @@ def forecast_section(view: Any) -> Element:
             + f"); inference via {_inference_label(view)}.",
         ),
     )
+
+
+def _data_source_label(view: Any) -> str:
+    """What the fit trained on: the captured history tier (the data of
+    /tpu/trends) or a live Prometheus range query."""
+    if view.data_source == "history":
+        return "captured history"
+    return "live-window history"
 
 
 def _inference_label(view: Any) -> str:
@@ -232,10 +288,13 @@ def _inference_label(view: Any) -> str:
 def metrics_page(
     metrics: TpuMetricsSnapshot | None, forecast: Any | None = None
 ) -> Element:
+    # The availability matrix keys on the differ's ``cell:available``
+    # cell: push evicts it when availability flips, and its salt covers
+    # the resolved-series map for everything subtler.
     children: list[Any] = [
-        # The boundaries' salts come with the fragment cache, which
-        # alone reads them.
-        fragment("cell:available", None, lambda: availability_matrix(metrics))
+        fragment(
+            "cell:available", _availability_salt(metrics), lambda: availability_matrix(metrics)
+        )
     ]
 
     if metrics is None:
@@ -283,12 +342,13 @@ def metrics_page(
 
     if forecast is not None:
         children.append(
-            fragment("cell:forecast", None, lambda: forecast_section(forecast))
+            fragment("cell:forecast", _forecast_salt(forecast), lambda: forecast_section(forecast))
         )
 
-    # One boundary per chip card, keyed as the JAX package keys them.
+    # One boundary per chip card, keyed as the differ keys metrics rows:
+    # one chip's sample moving evicts one card.
     children.extend(
-        fragment(f"{c.node}/{c.accelerator_id}", None, lambda c=c: chip_card(c))
+        fragment(f"{c.node}/{c.accelerator_id}", _chip_salt(c), lambda c=c: chip_card(c))
         for c in metrics.chips
     )
     return h("div", {"class_": "hl-page hl-metrics"}, children)

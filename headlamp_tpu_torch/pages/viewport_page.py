@@ -6,8 +6,8 @@ shows per-cluster rollup rows (computed on the device at scale); a
 cluster shows its slices; a slice shows a cursor-windowed node table. No
 level ever renders a row per fleet node, so the 16k-node fleet paints in
 the same bytes as the 1k one. Each drill-down path is also the key of a
-region-scoped push stream (``/events?region=<path>``) in the JAX host,
-and the page says so in the same bytes.
+region-scoped push stream (``/events?region=<path>``), and the page
+says so.
 """
 
 from __future__ import annotations

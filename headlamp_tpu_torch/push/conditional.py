@@ -12,6 +12,10 @@ Gzip is negotiated per request from ``Accept-Encoding`` and applied at
 the socket layer (the gateway trades in ``str`` bodies). ``mtime=0``
 keeps the compressed bytes deterministic, so an ETag-keyed cache can
 reuse them.
+
+This is the polling half of the push package: a client on ``/events``
+gets patch frames from the differ and the hub instead, and repaints in
+full only on a ``paint`` event or after a ``bye``.
 """
 
 from __future__ import annotations

@@ -325,9 +325,11 @@ class Refresher:
                 flights[0].done.wait(min(remaining, 0.25))
                 continue
             threads[0].join(remaining)
-            if not threads[0].is_alive():
-                with self._lock:
-                    self._threads.remove(threads[0])
+            # A refit spawned since the snapshot rebuilt the list without
+            # its ended threads, so the joined one may be gone already:
+            # prune by liveness under the lock, never remove by identity.
+            with self._lock:
+                self._threads = [t for t in self._threads if t.is_alive()]
 
     # -- observability ---------------------------------------------------
 

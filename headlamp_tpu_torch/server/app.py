@@ -30,6 +30,12 @@ over stdlib ``http.server``:
   and forecast caches (and with ``recalibrate=1`` the rollup calibration
   and the device columns), then redirect to a registered route or a node
   or pod detail path;
+- ``GET /events``             Server-Sent Events: a patch frame per changed
+  page (``?pages=``, default the four diffable pages) or per changed
+  drill-down region (``?region=cluster/<c>[/slice/<s>]``) on every sync
+  that bumps the generation, ``Last-Event-ID`` resume, heartbeats, and
+  ``?class=debug`` for a stream that is shed first; it bypasses the
+  gateway and holds no render worker;
 - ``GET /healthz``            liveness and the runtime counters, as JSON;
 - ``GET /metricsz``           Prometheus text self-exposition, or
   OpenMetrics with exemplars when the Accept header asks for it;
@@ -87,9 +93,19 @@ bypasses the gateway. Bodies are gzipped when the client accepts it,
 keyed by the ETag. With a pooled transport (:class:`KubeTransport`)
 ``/healthz`` carries the connection pool's counters.
 
-Push, replication, workers, the fragment cache, the incident timeline
-and the pages not listed above are not part of this host; ``/healthz``
-leaves out the keys of the JAX host's that describe them.
+Every sync that bumps the snapshot generation hands the snapshot, with
+peeks of the cached metrics and forecast (never a fetch or a fit), to the
+app's push pipeline (``push/``): the differ builds page models, diffs
+them against the previous generation's, evicts the changed keys from the
+fragment cache and fans the frames out to the ``/events`` subscribers.
+Snapshot pages paint through that fragment cache (``ui/fragment.py``):
+each keyed, salted boundary whose bytes are cached for the paint's
+epoch and degraded flag is spliced, not re-rendered, and the bytes equal
+a plain paint's. ``fragments=False`` turns the cache off.
+
+Replication, workers, the incident timeline and the pages not listed
+above are not part of this host; ``/healthz`` leaves out the keys of the
+JAX host's that describe them.
 """
 
 from __future__ import annotations
@@ -126,6 +142,15 @@ from ..obs.metrics import registry as metrics_registry
 from ..obs.profiler import attribution, profiler
 from ..obs.trace import annotate, current_trace_id, span, trace_request, trace_ring
 from ..pages.native import native_node_page, native_pod_page
+from ..push import PAGES as PUSH_PAGES
+from ..push import (
+    REGION_PAGE_PREFIX,
+    PushPipeline,
+    Subscription,
+    format_event,
+    set_active_push,
+    worker_identity,
+)
 from ..push.conditional import encode_body
 from ..registration import Registry, register_plugin
 from ..runtime.device_cache import warm_carries
@@ -133,7 +158,8 @@ from ..runtime.refresh import Refresher
 from ..runtime.transfer import TransferBatch, transfer_stats
 from ..transport.api_proxy import Transport
 from ..transport.pool import pool_of
-from ..ui import Element, render_html
+from ..ui import Element, FragmentCache, FragmentPaint, render_html, set_active_fragments
+from ..viewport import parse_region, region_path
 from .style import STYLESHEET
 
 #: Paths the host answers itself, outside the registry.
@@ -147,6 +173,7 @@ _OWN_ROUTES = (
     "/debug/profilez",
     "/debug/profilez/folded",
     "/debug/generationz",
+    "/events",
 )
 
 #: The native detail paths (`app.py:65-70` of the JAX host): Kubernetes
@@ -199,7 +226,9 @@ class DashboardApp:
     the constructor raises. ``clock`` (wall time) is only for displayed
     timestamps (page ages, the snapshot's fetch time) and the Prometheus
     range-query bounds; ``monotonic`` drives every TTL, age and the sync
-    interval, so tests advance a list cell instead of sleeping."""
+    interval, so tests advance a list cell instead of sleeping.
+    ``fragments=False`` paints without the fragment cache: the plain
+    oracle its paints are held byte-equal to."""
 
     #: Forecasts are fresh this long: the history grid gains a point per
     #: step, and the fit must not run on every page view.
@@ -237,6 +266,7 @@ class DashboardApp:
         clock: Callable[[], float] = time.time,
         monotonic: Callable[[], float] = time.monotonic,
         pod_field_selector: str | None = None,
+        fragments: bool = True,
     ) -> None:
         self._device = resolve_device(device)
         self._transport = transport
@@ -319,6 +349,19 @@ class DashboardApp:
         #: Lifecycle stamps of every snapshot generation this app syncs
         #: and paints, on the app's clocks.
         self.ledger = GenerationLedger(monotonic=monotonic, wall=clock, role="leader")
+        #: Rendered HTML per differ key, per app (two fleets never share
+        #: bytes). ``fragments=False`` turns it off: the non-incremental
+        #: oracle the byte-identity checks compare against.
+        self.fragments: FragmentCache | None = None
+        if fragments:
+            self.fragments = FragmentCache()
+            set_active_fragments(self.fragments)
+        #: The snapshot differ and the SSE hub. Building it starts no
+        #: thread: /events handler threads belong to the socket server,
+        #: and the differ runs on whichever thread syncs. The module-level
+        #: active pipeline only feeds the connected-clients gauge.
+        self.push = PushPipeline(monotonic=monotonic, fragments=self.fragments, ledger=self.ledger)
+        set_active_push(self.push)
         # Every scrape the metrics refresher stores (background refits
         # and cold fills) lands in the history store.
         self._metrics_refresher.on_store = self._capture_metrics_store
@@ -507,7 +550,14 @@ class DashboardApp:
         count into the history tier, and count consecutive failing syncs
         for /healthz: a sync fails when it raised (``snap`` None) or its
         snapshot carries reactive-track errors (transport failures never
-        raise out of ``sync()``; they degrade into the error streams)."""
+        raise out of ``sync()``; they degrade into the error streams).
+        Then, with that bookkeeping done, the snapshot goes to the push
+        pipeline: a generation bump diffs its page models and broadcasts
+        the frames; a clean tick (the same generation) is skipped. The
+        metrics and forecast it diffs are peeks, never a fetch or a fit,
+        so the sync heartbeat grows no Prometheus probe chain. A differ
+        that raises is counted and named in /healthz ``runtime.push``."""
+        generation = 0
         if snap is not None:
             generation = next(
                 (int(s.view.version) for s in snap.providers.values() if s.view.version), 0
@@ -519,12 +569,17 @@ class DashboardApp:
             self.ledger.synced(generation, trace_id=current_trace_id())
         if snap is not None and not snap.errors:
             self._sync_failures = 0
-            return
-        self._sync_failures += 1
-        self._last_sync_error = (
-            f"{type(error).__name__}: {error}" if error is not None else snap.error
-        )
-        self._sync_fail_total.inc()
+        else:
+            self._sync_failures += 1
+            self._last_sync_error = (
+                f"{type(error).__name__}: {error}" if error is not None else snap.error
+            )
+            self._sync_fail_total.inc()
+        if snap is not None:
+            self.push.on_snapshot(
+                snap, generation=generation,
+                metrics=self._peek_metrics, forecast=self._peek_forecast,
+            )
 
     def _background_live(self) -> bool:
         stop = self._background_stop
@@ -629,6 +684,17 @@ class DashboardApp:
         return self._metrics_refresher.peek(
             "metrics", epoch=self._cache_epoch, max_age_s=self.METRICS_PEEK_MAX_AGE_S
         )
+
+    def _peek_forecast(self) -> ForecastView | None:
+        """The cached forecast for the metrics peek's chip set, or None:
+        never fetches and never fits (``Refresher.peek`` reads the entry
+        map only). For the push differ: the metrics page model diffs the
+        forecast a recent metrics view already paid for, and a cold cache
+        diffs the page without its forecast rows."""
+        metrics = self._peek_metrics()
+        if metrics is None or not metrics.chips:
+            return None
+        return self._forecast_refresher.peek(self._metrics_key(metrics), epoch=self._cache_epoch)
 
     def _metrics_and_forecast(self) -> tuple[TpuMetricsSnapshot | None, ForecastView | None]:
         with span("page.data.metrics"):
@@ -783,6 +849,7 @@ class DashboardApp:
         pool = pool_of(self._transport)
         if pool is not None:
             blocks.append(("transport", pool.counters()))
+        blocks.append(("push", self.push.counters()))
         for prefix, counters in blocks:
             for key, value in counters.items():
                 out[f"{prefix}.{key}"] = value
@@ -912,6 +979,7 @@ class DashboardApp:
         if route.kind == "metrics":
             with span("page.data", kind=route.kind):
                 metrics, forecast = self._metrics_and_forecast()
+        paint = self._fragment_paint(route_path)
         with span("page.component", kind=route.kind):
             if route.kind == "metrics":
                 el = route.component(metrics, forecast)
@@ -929,12 +997,36 @@ class DashboardApp:
                 el = route.component(snap, now=now, region=region, **paging)
             else:
                 el = route.component(snap, now=now, **paging)
+            if paint is not None:
+                # Every stale boundary renders into the cache here, so this
+                # span keeps covering all the tree's construction work.
+                paint.prerender(el)
+        inner: str | None = None
+        if paint is not None:
+            # Cached-byte assembly bills to its own stage: a warm paint
+            # spends next to nothing here, and a paint where it dominates
+            # has a salt that churns per request.
+            with span("fragment.splice", rendered=paint.rendered, spliced=paint.spliced):
+                inner = paint.splice(el)
         with span("render.html"):
-            body = self._page_html(route.name, render_html(el), route_path)
+            if inner is None:
+                inner = render_html(el)
+            body = self._page_html(route.name, inner, route_path)
         # The generation's first paint, stamped after its bytes are built;
         # a later paint of the same generation is a no-op.
         self.ledger.paint(self.snapshot_generation(), trace_id=current_trace_id())
         return 200, "text/html", body
+
+    def _fragment_paint(self, page: str) -> FragmentPaint | None:
+        """The paint-scoped fragment context for ``page`` (None with the
+        cache off): the cache and this paint's ETag invariants, the
+        generation, the /refresh epoch and the degraded flag."""
+        if self.fragments is None:
+            return None
+        return FragmentPaint(
+            self.fragments, page=page, generation=self.snapshot_generation(),
+            epoch=self._cache_epoch, degraded=degraded_active(),
+        )
 
     def _debug_page_response(self, route: Any, route_path: str) -> tuple[int, str, str]:
         """A telemetry page, painted from its snapshot alone: it reads no
@@ -1013,8 +1105,9 @@ class DashboardApp:
         ``HEALTH_FAILURE_THRESHOLD`` failing syncs in a row, while the
         background loop's snapshot is older than its wedged limit, while
         the last background warm failed, once a capture of the program
-        registry failed, or while the SLO engine's last budget fit
-        failed. Ages run on the injected monotonic clock."""
+        registry failed, while the SLO engine's last budget fit failed, or
+        while the push differ's last generation failed. Ages run on the
+        injected monotonic clock."""
         snap = self._last_snapshot
         failures = self._sync_failures
         ok = (
@@ -1022,6 +1115,7 @@ class DashboardApp:
             and not self._warm_failing
             and aot.registry().compile_errors == 0
             and slo_mod.engine().budget_fit_error is None
+            and not self.push.failing
         )
         background = self._background_live()
         health: dict[str, Any] = {"ok": ok, "loading": snap is None or snap.loading}
@@ -1077,9 +1171,11 @@ class DashboardApp:
         refreshers, the graph cost ledger and the program registry, the
         context's watch counters, the background loop, the history
         store, the SLO states with the last budget fit's error, the
-        profiler's counters, and the device with its kernel; with a
-        gateway its admission counters and queues, with a pooled
-        transport its connection pool."""
+        profiler's counters, the push pipeline (its differ and SSE hub),
+        and the device with its kernel; with the fragment cache on its
+        entries, bytes and hit rate, with a gateway its admission
+        counters and queues, with a pooled transport its connection
+        pool."""
         with self._lock:
             background = {
                 **self._background_counters,
@@ -1114,8 +1210,11 @@ class DashboardApp:
                 "running": prof.running(),
                 "overhead_ns_per_sample": None if overhead is None else round(overhead, 1),
             },
+            "push": self.push.snapshot(),
             "device": self._device_health(),
         }
+        if self.fragments is not None:
+            out["render"] = self.fragments.snapshot()
         if self.gateway is not None:
             out["gateway"] = self.gateway.snapshot()
         pool = pool_of(self._transport)
@@ -1169,7 +1268,38 @@ class DashboardApp:
                 **overrides,
             )
             set_active(self.gateway)
+            # Its snapshot gains the SSE connection count, and the hub
+            # sheds debug-class streams off the gateway's paging policy.
+            self.gateway.attach_push(self.push)
         return self.gateway
+
+    def open_event_stream(self, path: str, *, last_event_id: str | None = None) -> Subscription:
+        """Admit one ``/events`` subscription: the accounting half of the
+        endpoint, apart from the socket loop, so tests drive the protocol
+        without sockets. ``?region=`` (canonicalized through the viewport
+        parser) subscribes to that drill-down region's frames only; an
+        unparseable region falls back to the full page set. Otherwise
+        ``?pages=`` is a comma-separated list (unknown pages dropped,
+        none left means all). ``?class=debug`` puts the stream in the
+        class shed first under a paging burn.
+
+        The stream counts once in requests_total at admission (status 200)
+        and never in the latency histogram: a connection's lifetime is
+        not a paint latency."""
+        query = parse_qs(urlparse(path).query)
+        region = query.get("region", [""])[0][:253]
+        if region:
+            parsed_region = parse_region(region)
+            if parsed_region is not None:
+                pages = [REGION_PAGE_PREFIX + region_path(*parsed_region)]
+            else:
+                pages = list(PUSH_PAGES)
+        else:
+            requested = [p for p in query.get("pages", [""])[0].split(",") if p]
+            pages = [p for p in requested if p in PUSH_PAGES] or list(PUSH_PAGES)
+        priority = "debug" if query.get("class", [""])[0] == "debug" else "interactive"
+        self._req_total.inc(route="/events", status="200")
+        return self.push.hub.subscribe(pages, last_event_id=last_event_id, priority=priority)
 
     def serve(self, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
         """Serve this app on ``(host, port)``; see :func:`serve`."""
@@ -1183,8 +1313,10 @@ class DashboardApp:
         carries and the snapshot's device columns and wait for the card's
         queued work, so nothing this app started is still running (the
         loop is joined first, so a late warm cannot republish columns
-        after the drop). Raises TimeoutError if a thread outlives
+        after the drop). Every ``/events`` subscription is evicted first
+        (each gets ``bye``). Raises TimeoutError if a thread outlives
         ``timeout_s``."""
+        self.push.close()
         gateway = self.gateway
         if gateway is not None:
             if not gateway.close(timeout_s):
@@ -1235,11 +1367,13 @@ class DashboardServer:
         self._thread.join()
 
     def close(self, timeout_s: float = 30.0) -> None:
-        """Stop accepting, close the socket, join the request threads,
-        release the sampling profiler (its thread stops and is joined
-        with the last server's close), then close the app: its refits
-        and the SLO budget fit drained, the warm carries and device
-        columns dropped and no CUDA work left in flight."""
+        """Evict every ``/events`` stream (each parked handler wakes,
+        writes ``bye`` and ends), stop accepting, close the socket, join
+        the request threads, release the sampling profiler (its thread
+        stops and is joined with the last server's close), then close the
+        app: its refits and the SLO budget fit drained, the warm carries
+        and device columns dropped and no CUDA work left in flight."""
+        self.app.push.close()
         self._httpd.shutdown()
         self._thread.join()
         # ThreadingHTTPServer blocks on close: server_close joins every
@@ -1259,10 +1393,13 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
     on a ``ThreadingHTTPServer``: each request thread hands its GET to
     the app's gateway (:meth:`DashboardApp.ensure_gateway`, `app.py:1757-1810`
     of the JAX host) and waits; a 304 goes out without a body, a 200 is
-    gzipped when the client accepts it. Start the process's program
-    registry capturing its startup set on the app's device on a
-    background thread (`app.py:1745-1755`; a no-op once started), and the
-    sampling profiler's thread (`app.py:1741`). Requests that arrive
+    gzipped when the client accepts it. ``/events`` never reaches the
+    gateway: its thread subscribes to the push hub and writes each event
+    as it comes (`app.py:1858-1892`) until a ``bye`` or the client
+    leaves. Start the process's program registry capturing its startup
+    set on the app's device on a background thread (`app.py:1745-1755`;
+    a no-op once started), and the sampling profiler's thread
+    (`app.py:1741`). Requests that arrive
     before the registry is ready run their programs eagerly. Building an
     app never starts either. Returns the running server; its ``close()``
     stops everything it started."""
@@ -1272,6 +1409,12 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self) -> None:  # noqa: N802 (http.server API)
+            if urlparse(self.path).path.rstrip("/") == "/events":
+                # Parked on this handler thread in the hub's condition
+                # wait, never on a render worker: a wall of idle
+                # dashboards must not hold render capacity.
+                self._serve_events()
+                return
             response = gateway.handle(
                 self.path,
                 accept=self.headers.get("Accept"),
@@ -1312,6 +1455,35 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
                 self.send_header(name, value)
             self.end_headers()
             self.wfile.write(data)
+
+        def _serve_events(self) -> None:
+            sub = app.open_event_stream(self.path, last_event_id=self.headers.get("Last-Event-ID"))
+            hub = app.push.hub
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("X-Headlamp-Generation", str(app.snapshot_generation()))
+                # Which worker process the stream is pinned to, when the
+                # host runs several.
+                worker = worker_identity()
+                if worker is not None:
+                    self.send_header("X-Headlamp-Worker", worker)
+                self.end_headers()
+                while True:
+                    event = hub.next_event(sub)
+                    if event is None:
+                        return
+                    self.wfile.write(format_event(event).encode())
+                    self.wfile.flush()
+                    if event.get("kind") == "bye":
+                        return
+            except OSError:
+                # The client went away mid-stream: the normal end of an
+                # SSE connection. A hub eviction was counted already.
+                pass
+            finally:
+                hub.unsubscribe(sub)
 
         def log_message(self, *args: Any) -> None:
             pass

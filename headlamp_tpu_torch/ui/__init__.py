@@ -1,5 +1,6 @@
-"""UI kit — element tree, the components the pages use, and fragment
-boundaries. Pages build trees; renderers are separate."""
+"""UI kit — element tree, the components the pages use, fragment
+boundaries and the fragment cache. Pages build trees; renderers are
+separate."""
 
 from .components import (
     BAR_CRIT_PCT,
@@ -16,17 +17,27 @@ from .components import (
     StatusLabel,
     UtilizationBar,
 )
-from .fragment import FragmentBoundary, fragment
+from .fragment import (
+    DEFAULT_MAX_ENTRIES,
+    FragmentBoundary,
+    FragmentCache,
+    FragmentPaint,
+    fragment,
+    set_active_fragments,
+)
 from .vdom import Element, h, render_html, render_text, text_content
 
 __all__ = [
     "BAR_CRIT_PCT",
     "BAR_WARN_PCT",
     "BudgetBar",
+    "DEFAULT_MAX_ENTRIES",
     "Element",
     "EmptyContent",
     "ErrorBox",
     "FragmentBoundary",
+    "FragmentCache",
+    "FragmentPaint",
     "Loader",
     "NameValueTable",
     "PercentageBar",
@@ -39,5 +50,6 @@ __all__ = [
     "h",
     "render_html",
     "render_text",
+    "set_active_fragments",
     "text_content",
 ]

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import html
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 Child = Any  # Element | str | int | float | None (None children are dropped)
 
@@ -74,11 +74,21 @@ def render_html(node: Child) -> str:
     return "".join(out)
 
 
-def _render_html_into(node: Child, out: list[str]) -> None:
+def _render_html_into(
+    node: Child,
+    out: list[str],
+    resolve: Callable[[BoundaryNode], str] | None = None,
+) -> None:
     if node is None:
         return
     if isinstance(node, BoundaryNode):
-        _render_html_into(node.built(), out)
+        # ``resolve`` is the fragment cache's hook: it returns the
+        # boundary's bytes, cached or freshly rendered. Without one,
+        # descend: plain render_html is the non-incremental oracle.
+        if resolve is not None:
+            out.append(resolve(node))
+        else:
+            _render_html_into(node.built(), out)
         return
     if not isinstance(node, Element):
         out.append(html.escape(str(node)))
@@ -98,7 +108,7 @@ def _render_html_into(node: Child, out: list[str]) -> None:
         return
     out.append(f"<{node.tag}{attr_str}>")
     for c in node.children:
-        _render_html_into(c, out)
+        _render_html_into(c, out, resolve)
     out.append(f"</{node.tag}>")
 
 

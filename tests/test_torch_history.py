@@ -304,7 +304,7 @@ def test_host_forecast_trains_on_history_once_the_store_holds_a_window():
     calls = len(t.calls)
     status, _, body = app.handle("/tpu/metrics")
     view = app._forecast_refresher.peek(app._metrics_key(metrics), epoch=app._cache_epoch)
-    assert status == 200 and "history history" in body
+    assert status == 200 and "of captured history in" in body and "history history" not in body
     assert (view.data_source, view.inference_path, len(view.chips)) == ("history", "torch", 64)
     assert not any("/query_range" in c for c in t.calls[calls:])
     app.close()

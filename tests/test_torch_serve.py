@@ -1,6 +1,7 @@
 """The port's serving runtime on the CPU: the refresher (stale serve
 while a blocked refit runs, single flight, epoch invalidation, as
-``tests/test_server.py`` pins for the JAX host), the warm-carry store,
+``tests/test_server.py`` pins for the JAX host, and a drain that a refit
+spawned mid-drain cannot break), the warm-carry store,
 the ``/metricsz`` text, the launch count under threads, the transfer
 funnel, request traces, the ``/healthz`` runtime block, and a real
 socket round trip through ``serve()`` and ``close()``."""
@@ -23,7 +24,9 @@ from headlamp_tpu_torch.obs import slo as slo_mod
 from headlamp_tpu_torch.obs.metrics import MetricRegistry
 from headlamp_tpu_torch.obs.metrics import registry as port_registry
 from headlamp_tpu_torch.obs.trace import trace_ring
+from headlamp_tpu_torch.runtime import refresh as refresh_mod
 from headlamp_tpu_torch.runtime import transfer
+from headlamp_tpu_torch.runtime.refresh import Refresher
 from headlamp_tpu_torch.runtime.device_cache import WarmCarryCache, warm_carries
 from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
 
@@ -103,6 +106,26 @@ class TestRefresher:
         assert r.get_nowait("cold", lambda: "bg") is None
         assert r.drain() and r.get_nowait("cold", lambda: "again") == "bg"
         assert stored == ["bg"]
+
+    def test_drain_survives_a_refit_spawned_between_its_join_and_its_prune(self, monkeypatch):
+        # The refit thread's join() spawns another refit once it has
+        # ended: the spawn rebuilds the thread list without the joined
+        # thread, which drain() used to remove by identity (ValueError).
+        r = Refresher("forecast", ttl_s=60.0, grace_s=600.0, monotonic=lambda: 0.0)
+        spawned = []
+
+        class SpawningThread(threading.Thread):
+            def join(self, timeout=None):
+                super().join(timeout)
+                if not spawned:
+                    spawned.append(r.get_nowait("second", lambda: "two"))
+
+        monkeypatch.setattr(refresh_mod.threading, "Thread", SpawningThread)
+        assert r.get_nowait("first", lambda: "one") is None
+        assert r.drain(10.0) is True
+        assert spawned == [None] and not r._threads
+        assert r.get_nowait("first", lambda: "x") == "one"
+        assert r.get_nowait("second", lambda: "x") == "two"
 
 
 def test_warm_carry_cache_pops_and_evicts_least_recently_stored():
@@ -220,7 +243,7 @@ def test_metrics_request_trace_and_healthz_runtime():
     runtime = health["runtime"]
     assert set(runtime) == {
         "transfer", "fleet_cache", "warm_carries", "refresh", "device",
-        "watch", "background", "history", "graphs", "aot", "slo", "profiler",
+        "watch", "background", "history", "graphs", "aot", "slo", "profiler", "push", "render",
     }
     assert set(runtime["slo"]["states"]) == {
         "scrape_paint", "dashboard_render", "forecast_fit", "transport_connect", "data_freshness",

@@ -9,10 +9,12 @@ package's PRNGKey(0) init, so the two fit the same model. The page's
 refit, agree to 1e-2 as in ``tests/test_torch_service.py``. A fit that
 raises is a 500 naming it on the request path and a counted, named
 refit error on the background path; an unported route is a 404 (and
-``/tpu/trends`` a 200, now that the history store is ported), and
+``/tpu/trends`` a 200, now that the history store is ported), ``/events``
+answers an event stream over the socket (``?region=`` a region's), and
 ``/refresh`` returns home to the Overview.
 """
 
+import http.client
 import json
 import re
 
@@ -26,9 +28,11 @@ from headlamp_tpu.runtime.device_cache import warm_carries as jax_carries
 from headlamp_tpu.server import DashboardApp as JaxApp
 from headlamp_tpu.server import make_demo_transport as jax_demo_transport
 from headlamp_tpu_torch.metrics import timing
+from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.models import forecast as tf
 from headlamp_tpu_torch.models import service
 from headlamp_tpu_torch.models.convert import params_from_jax
+from headlamp_tpu_torch.obs import slo as slo_mod
 from headlamp_tpu_torch.runtime.device_cache import warm_carries
 from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
 from headlamp_tpu_torch.server.__main__ import main as server_main
@@ -204,9 +208,7 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     assert len(warm_carries) == 1
 
 
-@pytest.mark.parametrize(
-    "path", ["/debug/incidentz/html", "/debug/incidentz", "/intel", "/events"]
-)
+@pytest.mark.parametrize("path", ["/debug/incidentz/html", "/debug/incidentz", "/intel"])
 def test_unported_routes_are_404(path):
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     status, ctype, body = app.handle(path)
@@ -216,6 +218,33 @@ def test_unported_routes_are_404(path):
     status, ctype, body = app.handle("/tpu/trends")
     assert (status, ctype) == (200, "text/html") and "History store" in body
     assert app._route_label("/tpu/trends") == "/tpu/trends"
+
+
+def test_events_answer_an_event_stream_and_a_region_stream(monkeypatch):
+    # /events is ported: served over the socket as Server-Sent Events,
+    # ?region= narrowed to that drill-down region's frames.
+    monkeypatch.setattr(aot, "_REGISTRY", aot.AotProgramRegistry())
+    monkeypatch.setattr(slo_mod, "_engine", slo_mod.SLOEngine())
+    app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
+    server = app.serve("127.0.0.1", 0)
+    streams = []
+    try:
+        host, port = server.url[len("http://"):].split(":")
+        for path in ("/events", "/events?region=cluster/0/slice/v5e-pool"):
+            conn = http.client.HTTPConnection(host, int(port), timeout=30)
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            assert resp.status == 200 and resp.getheader("Content-Type") == "text/event-stream"
+            streams.append((conn, resp))
+        pages = sorted(sorted(sub.pages) for sub in app.push.hub._subs)
+        assert pages == [["/tpu", "/tpu/metrics", "/tpu/nodes", "/tpu/pods"],
+                         ["region:cluster/0/slice/v5e-pool"]]
+        assert json.loads(app.handle("/healthz")[2])["runtime"]["push"]["connected"] == 2
+    finally:
+        server.close()
+    for conn, resp in streams:
+        assert resp.read() == b'event: bye\ndata: {"reason":"shutdown"}\n\n'
+        conn.close()
 
 
 def test_refresh_bumps_the_epoch_and_redirects_only_to_routes():

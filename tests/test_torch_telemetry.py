@@ -325,9 +325,10 @@ def test_wide_events_pin_a_5xx_and_a_violated_objective(monkeypatch):
 
 
 def test_the_ledger_stamps_each_generation_from_sync_to_first_paint():
-    """An inline sync stamps the scrape and the snapshot, the page its
-    first paint (later paints of the generation stamp nothing); a
-    background tick stamps the next scrape and sync."""
+    """An inline sync stamps the scrape and the snapshot, the push
+    differ its diff, the page its first paint (later paints of the
+    generation stamp nothing); a background tick stamps the next scrape
+    and sync."""
     mono = [1000.0]
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=lambda: CLOCK,
                        monotonic=lambda: mono[0], min_sync_interval_s=60.0)
@@ -344,7 +345,7 @@ def test_the_ledger_stamps_each_generation_from_sync_to_first_paint():
     finally:
         app.close()
     assert entry["generation"] == gen > 0
-    assert list(entry["stages"]) == ["scrape_start", "synced", "first_paint"]
+    assert list(entry["stages"]) == ["scrape_start", "synced", "diff_framed", "first_paint"]
     assert entry["age_at_paint_ms"] == 0.0 and not entry["breached"]
     assert entry["trace_ids"] == {"synced": first_trace, "first_paint": first_trace}
     assert entry["stages"]["first_paint"]["lag_ms"] == 0.0
