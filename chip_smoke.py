@@ -999,7 +999,7 @@ def live_sync_phase(torch: Any, clock: Callable[[], float], smi: str, n: int) ->
 
         view = app._last_snapshot.provider("tpu").view
         node_name = view.nodes[7]["metadata"]["name"]
-        changed_ms, warm_ms, first_fleet_ms = [], [], []
+        changed_ms, warm_ms, first_fleet_ms, diff_ms = [], [], [], []
         for i in range(LIVE_CHANGED_TICKS):
             before = counters()
             node = json.loads(json.dumps(app._last_snapshot.provider("tpu").nodes[7]))
@@ -1024,6 +1024,9 @@ def live_sync_phase(torch: Any, clock: Callable[[], float], smi: str, n: int) ->
             if i == 0:
                 out["changed_tick_spans"] = span_totals(changed)
             warm_ms.append(span_totals(changed)["device_cache.upload"])
+            # The push differ's share of the tick (its own span; the app's
+            # monotonic clock is frozen here, so push_diff_seconds reads 0).
+            diff_ms.append(span_totals(changed).get("push.diff", 0.0))
             status, body, _ = get("/tpu")
             trace = trace_ring.snapshot()[0]
             check(status == 200 and "device_cache.upload" not in span_totals(trace)
@@ -1071,7 +1074,8 @@ def live_sync_phase(torch: Any, clock: Callable[[], float], smi: str, n: int) ->
     out.update(
         quiet_tick_ms=statistics.median(quiet_ms), changed_tick_ms=statistics.median(changed_ms),
         warm_upload_ms=statistics.median(warm_ms), first_fleet_ms=first_fleet_ms,
-        quiet_all=quiet_ms, changed_all=changed_ms, warm_all=warm_ms,
+        push_diff_ms=statistics.median(diff_ms),
+        quiet_all=quiet_ms, changed_all=changed_ms, warm_all=warm_ms, diff_all=diff_ms,
         watch=health["runtime"]["watch"],
     )
     inline = (f"; with an inline sync and encode it took {INLINE_FIRST_FLEET_MS[0]} / "
@@ -1082,7 +1086,9 @@ def live_sync_phase(torch: Any, clock: Callable[[], float], smi: str, n: int) ->
           f"next request, no device_cache.upload on /tpu, rollup equal to python_fleet_stats; "
           f"410 Gone: 1 re-list per track, version +1; watch {out['watch']}")
     print(f"live: {n} nodes: tick p50 quiet {out['quiet_tick_ms']:.3f} ms (of {len(quiet_ms)}), "
-          f"changed {out['changed_tick_ms']:.3f} ms; warm upload p50 {out['warm_upload_ms']:.3f} ms; "
+          f"changed {out['changed_tick_ms']:.3f} ms, of which push.diff {out['push_diff_ms']:.3f} ms "
+          f"(all changed {json.dumps(changed_ms)}, push.diff {json.dumps(diff_ms)}); "
+          f"warm upload p50 {out['warm_upload_ms']:.3f} ms; "
           f"first /tpu/fleet after a change {', '.join(f'{v:.1f}' for v in first_fleet_ms)} ms over "
           f"the socket{inline}; its spans {out['first_fleet_trace']}; a changed tick's spans "
           f"{out['changed_tick_spans']}; a quiet tick's {span_totals(ticks[first_quiet])}; on {smi}")
@@ -2545,7 +2551,18 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
     def sse_threads() -> list[Any]:
         return [t for t in threading.enumerate() if "process_request_thread" in t.name]
 
-    launches = 0
+    # One reset for the whole step; each segment reads its own delta and
+    # is held to its count, so a refit anywhere in the step (a warm round
+    # included, where it would skew the hit rate and the p50s) shows.
+    LAUNCHES.reset()
+    segments: dict[str, int] = {}
+
+    def segment(name: str, want: int) -> None:
+        torch.cuda.synchronize()
+        n = LAUNCHES.n - sum(segments.values())
+        segments[name] = n
+        check(n == want, f"step 19's {name} launched forecast_mlp_forward {n} times, not {want}")
+
     out: dict[str, Any] = {}
     t_step = time.perf_counter()
     warm_carries.invalidate()
@@ -2559,12 +2576,10 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
     try:
         app.start_background_sync(LIVE_INTERVAL_S)
         _wait_for(lambda: app._background_counters["ticks"] >= 1, "the hydrating tick")
-        LAUNCHES.reset()
+        segment("setup", 0)
         check(http_get(server.url + "/tpu/metrics")[0] == 200, "GET /tpu/metrics")
-        torch.cuda.synchronize()
-        check(LAUNCHES.n == 1 and app._peek_forecast() is not None,
-              f"the first /tpu/metrics launched {LAUNCHES.n} times")
-        launches += LAUNCHES.n
+        segment("first /tpu/metrics", 1)
+        check(app._peek_forecast() is not None, "no forecast to peek after /tpu/metrics")
         # The baseline models were built before any metrics were cached:
         # one flip first, so the metrics model diffs with its peeks from
         # here on and the measured flip changes /tpu/nodes alone.
@@ -2588,12 +2603,12 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
               and health["gateway"]["inflight_renders"] == 0
               and health["push"]["connected"] == PUSH_CLIENTS + 2,
               f"/healthz gateway {health['gateway']}, push {health['push']}")
+        segment("warm-up flip and connects", 0)
 
         # One fleet change.
         before = dict(app.push.counters())
         renders, kinds, diff_before = gateway.counters()["rendered"], ledger_kinds(), diff_seconds()
         gen = app.snapshot_generation()
-        LAUNCHES.reset()
         t0 = time.perf_counter()
         flipped = _flip_ready(app, transport, flip_index)
         app._background_wake.set()
@@ -2618,10 +2633,10 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
               and after["broadcasts"] == before["broadcasts"] + 1
               and after["frames_sent"] - before["frames_sent"] == PUSH_CLIENTS + 2,
               f"push counters {before} -> {after}")
-        check(gateway.counters()["rendered"] == renders and LAUNCHES.n == 0
-              and ledger_kinds() == kinds,
-              f"the fan-out rendered {gateway.counters()['rendered'] - renders}, launched "
-              f"{LAUNCHES.n}, ledger {kinds} -> {ledger_kinds()}")
+        segment("fan-out", 0)
+        check(gateway.counters()["rendered"] == renders and ledger_kinds() == kinds,
+              f"the fan-out rendered {gateway.counters()['rendered'] - renders}, ledger "
+              f"{kinds} -> {ledger_kinds()}")
         diff_after = diff_seconds()
         diff_ms = (diff_after[0] - diff_before[0]) * 1e3
         check(diff_after[1] == diff_before[1] + 1,
@@ -2658,6 +2673,7 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
         print(f"push: region cells of {len(cluster_id)} clusters and {len(slice_id)} slices "
               f"(nodes, ready, capacity, allocatable, in_use) equal the card's region rollup "
               f"exactly")
+        segment("region cells", 0)
 
         # Resume.
         replay = _SseClient(port, "/events", {"Last-Event-ID": f"g{new_gen - 1}"})
@@ -2674,6 +2690,7 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
               f"a resume past the backlog read {repaints}")
         print(f"push: Last-Event-ID g{new_gen - 1} replays the missed delta; g0 (past the "
               f"backlog) repaints {len(repaints)} pages with reason resync")
+        segment("resume", 0)
 
         # Shedding: the next fleet change closes the debug stream only.
         engines["now"] = _paging_engine(slo)
@@ -2688,6 +2705,7 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
               f"interactive streams after the shed: {sorted({e['id'] for e in nexts})}")
         engines["now"] = slo.SLOEngine()
         gateway.shed_policy.invalidate()
+        segment("shed", 0)
         print(f"push: paging -> the debug stream got bye/shed; all {PUSH_CLIENTS} interactive "
               f"streams read g{new_gen + 1} next (exactly one delta each before it); hub "
               f"{app.push.hub.counters()}")
@@ -2700,6 +2718,7 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
             c.close()
     left = len(sse_threads())
     check(left == 0, f"{left} SSE handler threads outlived server.close()")
+    segment("close", 0)
     out.update(close_ms=close_ms, handlers=handlers)
     print(f"push: server.close() in {close_ms:.1f} ms joined {handlers} request threads "
           f"({len(clients)} streams), {left} left")
@@ -2717,15 +2736,12 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
     off._metrics_refresher = on._metrics_refresher
     off._forecast_refresher = on._forecast_refresher
     try:
-        LAUNCHES.reset()
         for app_ in (on, off):
             app_._ctx.enable_watch()
             app_._background_tick()
             for path in FIVE_PAGES:
                 check(app_.handle(path)[0] == 200, f"{path} answered")
-        torch.cuda.synchronize()
-        check(LAUNCHES.n == 1, f"the two apps' first paints launched {LAUNCHES.n}")
-        launches += LAUNCHES.n
+        segment("fragment apps' first paints", 1)
         before = on.fragments.counters()
         times: dict[str, list[float]] = {"on": [], "off": []}
         for _ in range(PUSH_WARM_ROUNDS):
@@ -2735,6 +2751,7 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
                 bodies[name] = [app_.handle(path)[2] for path in FIVE_PAGES]
                 times[name].append((time.perf_counter() - t0) * 1e3)
             check(bodies["on"] == bodies["off"], "a fragment paint differs from the oracle's")
+        segment("warm rounds", 0)
         after = on.fragments.counters()
         hits, misses = after["hits"] - before["hits"], after["misses"] - before["misses"]
         hit_rate = hits / max(hits + misses, 1)
@@ -2759,28 +2776,30 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
               f"after a flip /tpu/nodes re-rendered {splice} for changed keys {changed}")
         print(f"fragments: after one flip /tpu/nodes re-rendered {splice['rendered']} boundaries "
               f"and spliced {splice['spliced']}, for {len(changed)} changed keys {sorted(changed)}")
+        segment("flip repaint", 0)
 
         misses = on.fragments.counters()["misses"]
         for app_ in (on, off):
             check(app_.handle("/refresh?back=/tpu/metrics")[0] == 302, "/refresh")
-        LAUNCHES.reset()
         bodies = {name: app_.handle("/tpu/metrics")[2] for name, app_ in apps.items()}
-        torch.cuda.synchronize()
+        segment("forced refit", 1)
         splice = next(s for s in trace_ring.snapshot()[1]["spans"]
                       if s["name"] == "fragment.splice")["attrs"]
-        check(bodies["on"] == bodies["off"] and LAUNCHES.n == 1 and splice["rendered"] >= 1
+        check(bodies["on"] == bodies["off"] and splice["rendered"] >= 1
               and on.fragments.counters()["misses"] > misses,
-              f"the forced refit: {LAUNCHES.n} launches, splice {splice}")
-        launches += LAUNCHES.n
+              f"the forced refit: splice {splice}")
         print(f"fragments: a refit forced by /refresh launched forecast_mlp_forward "
-              f"{LAUNCHES.n} time and re-rendered {splice['rendered']} boundaries of "
+              f"once and re-rendered {splice['rendered']} boundaries of "
               f"/tpu/metrics (the new epoch misses every entry), bytes equal to the oracle's")
     finally:
         for app_ in apps.values():
             app_.close()
-    check(launches == PUSH_LAUNCHES, f"the push step launched {launches}, not {PUSH_LAUNCHES}")
+    launches = LAUNCHES.n
+    check(launches == sum(segments.values()) == PUSH_LAUNCHES,
+          f"the push step launched {launches} ({segments}), not {PUSH_LAUNCHES}")
     out["seconds"] = time.perf_counter() - t_step
-    print(f"push: step 19 took {out['seconds']:.1f} s")
+    print(f"push: step 19 launched forecast_mlp_forward {launches} times, by segment "
+          f"{json.dumps(segments)}; took {out['seconds']:.1f} s")
     return launches, out
 
 

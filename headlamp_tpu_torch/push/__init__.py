@@ -114,21 +114,13 @@ class PushPipeline:
         self,
         *,
         monotonic: Callable[[], float] | None = None,
-        heartbeat_s: float = HEARTBEAT_S,
-        outbox_limit: int = OUTBOX_LIMIT,
-        backlog_limit: int = BACKLOG_LIMIT,
-        shed_check: Callable[[], bool] | None = None,
         fragments: Any = None,
         ledger: Any = None,
     ) -> None:
         self._mono = monotonic or time.monotonic
-        self.hub = BroadcastHub(
-            monotonic=self._mono,
-            heartbeat_s=heartbeat_s,
-            outbox_limit=outbox_limit,
-            backlog_limit=backlog_limit,
-            shed_check=shed_check,
-        )
+        #: The hub runs on its module constants; the gateway installs the
+        #: shed probe (``RenderGateway.attach_push``).
+        self.hub = BroadcastHub(monotonic=self._mono)
         #: Serializes generations: the background loop's first tick and a
         #: request's inline sync can both reach the hook.
         self._lock = threading.Lock()

@@ -576,10 +576,13 @@ class DashboardApp:
             )
             self._sync_fail_total.inc()
         if snap is not None:
-            self.push.on_snapshot(
-                snap, generation=generation,
-                metrics=self._peek_metrics, forecast=self._peek_forecast,
-            )
+            # Its own span, so a background tick's trace (last_tick_trace)
+            # and an inline sync's request trace show the differ's share.
+            with span("push.diff", generation=generation):
+                self.push.on_snapshot(
+                    snap, generation=generation,
+                    metrics=self._peek_metrics, forecast=self._peek_forecast,
+                )
 
     def _background_live(self) -> bool:
         stop = self._background_stop
@@ -1019,13 +1022,12 @@ class DashboardApp:
 
     def _fragment_paint(self, page: str) -> FragmentPaint | None:
         """The paint-scoped fragment context for ``page`` (None with the
-        cache off): the cache and this paint's ETag invariants, the
-        generation, the /refresh epoch and the degraded flag."""
+        cache off): the cache and the invariants its entries key on, the
+        /refresh epoch and the degraded flag."""
         if self.fragments is None:
             return None
         return FragmentPaint(
-            self.fragments, page=page, generation=self.snapshot_generation(),
-            epoch=self._cache_epoch, degraded=degraded_active(),
+            self.fragments, page=page, epoch=self._cache_epoch, degraded=degraded_active(),
         )
 
     def _debug_page_response(self, route: Any, route_path: str) -> tuple[int, str, str]:

@@ -114,20 +114,12 @@ def fragment(key: str, salt: Any, build: Callable[[], Child]) -> FragmentBoundar
 
 
 class _Entry:
-    __slots__ = ("salt", "epoch", "degraded", "generation", "html", "nbytes")
+    __slots__ = ("salt", "epoch", "degraded", "html", "nbytes")
 
-    def __init__(
-        self,
-        salt: Any,
-        epoch: int,
-        degraded: bool,
-        generation: int,
-        html: str,
-    ) -> None:
+    def __init__(self, salt: Any, epoch: int, degraded: bool, html: str) -> None:
         self.salt = salt
         self.epoch = epoch
         self.degraded = degraded
-        self.generation = generation
         self.html = html
         self.nbytes = len(html.encode("utf-8"))
 
@@ -135,11 +127,10 @@ class _Entry:
 class FragmentCache:
     """Bounded, counted LRU of rendered fragment bytes.
 
-    Entries key on ``(page, key)`` and carry the ETag
-    invariants — ``(generation, cache-epoch, degraded)`` — plus the
-    salt. A lookup hits only when epoch, degraded flag, AND salt all
-    match; a hit re-stamps the entry's generation (the entry is proven
-    current for the paint's generation). Every miss and every eviction
+    Entries key on ``(page, key)`` and carry the cache epoch and the
+    degraded flag plus the salt; a lookup hits only when all three
+    match. A new generation needs no stamp: the differ evicts the keys
+    it saw change (:meth:`invalidate`). Every miss and every eviction
     is counted — never silent — and byte totals feed the
     ``headlamp_tpu_torch_render_fragment_cache_bytes`` gauge."""
 
@@ -162,7 +153,6 @@ class FragmentCache:
         key: str,
         salt: Any,
         *,
-        generation: int,
         epoch: int,
         degraded: bool,
     ) -> str | None:
@@ -176,7 +166,6 @@ class FragmentCache:
                 and entry.salt == salt
             ):
                 self._entries.move_to_end(full)
-                entry.generation = generation
                 self.hits += 1
                 _HITS.inc()
                 return entry.html
@@ -191,12 +180,11 @@ class FragmentCache:
         salt: Any,
         html: str,
         *,
-        generation: int,
         epoch: int,
         degraded: bool,
     ) -> None:
         full = (page, key)
-        entry = _Entry(salt, epoch, degraded, generation, html)
+        entry = _Entry(salt, epoch, degraded, html)
         with self._lock:
             old = self._entries.pop(full, None)
             if old is not None:
@@ -283,20 +271,18 @@ class FragmentPaint:
     fragment.splice phase (assembles final bytes, appending cached
     fragments instead of descending)."""
 
-    __slots__ = ("cache", "page", "generation", "epoch", "degraded", "rendered", "spliced")
+    __slots__ = ("cache", "page", "epoch", "degraded", "rendered", "spliced")
 
     def __init__(
         self,
         cache: FragmentCache,
         *,
         page: str,
-        generation: int,
         epoch: int,
         degraded: bool,
     ) -> None:
         self.cache = cache
         self.page = page
-        self.generation = generation
         self.epoch = epoch
         self.degraded = degraded
         self.rendered = 0
@@ -315,7 +301,6 @@ class FragmentPaint:
             self.page,
             node.key,
             node.salt,
-            generation=self.generation,
             epoch=self.epoch,
             degraded=self.degraded,
         )
@@ -328,7 +313,6 @@ class FragmentPaint:
                 node.key,
                 node.salt,
                 html,
-                generation=self.generation,
                 epoch=self.epoch,
                 degraded=self.degraded,
             )

@@ -5,7 +5,7 @@ host's for every query shape (``?pages=``, ``?region=``, a bad region,
 ``?class=debug``) and counts the stream once at admission. The hook at
 the end of ``_record_sync``: the first snapshot is a baseline with no
 frames, a quiet tick (the same generation) is skipped, a generation bump
-produces frames, and the forecast the differ reads is a peek that never
+produces frames (timed as the tick's ``push.diff`` span), and the forecast the differ reads is a peek that never
 fits. A differ that raises is counted and named in ``/healthz``
 ``runtime.push``, with ``ok`` false until a later generation diffs
 cleanly. Over a real socket ``/events`` answers ``text/event-stream``,
@@ -104,6 +104,9 @@ def test_the_sync_hook_baselines_skips_a_quiet_tick_and_diffs_a_bump():
         assert event["kind"] == "delta" and event["id"] == f"g{generation + 1}"
         assert event["data"]["page"] == "/tpu/nodes" and list(event["data"]["rows"]) == [name]
         assert app.push.hub.poll(sub) is None  # region pages were not asked for
+        # The differ's time is its own span of the tick's trace.
+        spans = {s["name"]: s for s in app.last_tick_trace["spans"]}
+        assert spans["push.diff"]["attrs"] == {"generation": generation + 1}
         health = json.loads(app.handle("/healthz")[2])
         assert health["ok"] is True and health["runtime"]["push"]["diffs"] == 1
         ledger = app.ledger.snapshot()
