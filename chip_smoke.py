@@ -44,8 +44,15 @@ stand-in apiserver, painting what the demo transport paints. Then push
 and the fragment cache: a node flip served to 34 ``/events`` clients as
 one diff and one frame each, with no render and no launch, the differ's
 region cells against the card's region rollup, resume, shedding, and
-fragment paints byte-identical to plain ones. It exits non-zero at the
-first failure, and without CUDA or without the package beside it.
+fragment paints byte-identical to plain ones. Then provenance and
+replication: a leader publishing its generations on ``/replicate/bus``
+and two read replicas on the card painting its bytes from the records
+(ETags, 304s and ``/events`` frames too) with no forecast launch, the
+traces linked both ways through ``traceparent``, a failover drill on
+injected clocks (stale-honest paints, fencing, convergence), the
+``--replica`` entry point as a process of its own, and the bus's costs
+at 16384 nodes. It exits non-zero at the first failure, and without
+CUDA or without the package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -55,7 +62,10 @@ from __future__ import annotations
 import http.client
 import json
 import math
+import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -200,6 +210,9 @@ PUSH_CLIENTS = 32
 PUSH_WARM_ROUNDS = 9
 FIVE_PAGES = ("/tpu", "/tpu/nodes", "/tpu/pods", "/tpu/metrics", "/tpu/fleet")
 PUSH_LAUNCHES = 3
+#: The replication step's launches: the leader's one refit (its forecast
+#: is what the records ship); the replicas paint it and fit nothing.
+REPLICATION_LAUNCHES = 1
 #: The two measured durations a metrics page prints (masked to compare).
 PAGE_TIMINGS = re.compile(r"(history in|took) [0-9.e+-]+ ms")
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
@@ -353,6 +366,7 @@ def dashboard_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> in
     each request's launches and copies, prints the paint times, and
     returns the kernel launches of the checked requests."""
     from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import slo
     from headlamp_tpu_torch.runtime.device_cache import warm_carries
     from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
 
@@ -368,11 +382,21 @@ def dashboard_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> in
         metrics_gets += 1
         return http_get(server.url + "/tpu/metrics")
 
+    # The step's gateways rule on an engine of their own that nothing
+    # feeds: the cold GET is the process's first paint, beside the startup
+    # capture, and one paint past scrape_paint's 2 s alone would page the
+    # process engine and degrade the requests this step checks.
+    gateway_engine = slo.SLOEngine()
+
+    def serve_app() -> tuple[Any, Any]:
+        app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
+                           monotonic=lambda: mono[0])
+        app.ensure_gateway(engine=lambda: gateway_engine)
+        return app, app.serve("127.0.0.1", 0)
+
     warm_carries.invalidate()
     LAUNCHES.reset()
-    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
-                       monotonic=lambda: mono[0])
-    server = app.serve("127.0.0.1", 0)
+    app, server = serve_app()
     try:
         t0 = time.perf_counter()
         status, body = get_metrics(server)
@@ -430,9 +454,7 @@ def dashboard_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> in
         server.close()
 
     # Four concurrent requests on a fresh app with a cold key: one fit.
-    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
-                       monotonic=lambda: mono[0])
-    server = app.serve("127.0.0.1", 0)
+    app, server = serve_app()
     try:
         with ThreadPoolExecutor(4) as pool:
             statuses = [s for s, _ in pool.map(lambda _: get_metrics(server), range(4))]
@@ -460,14 +482,12 @@ def dashboard_host_phase(torch: Any, clock: Callable[[], float], smi: str) -> in
 
     for _ in range(SERVE_TIMED):
         warm_carries.invalidate()
-        server = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
-                              monotonic=lambda: mono[0]).serve("127.0.0.1", 0)
+        _, server = serve_app()
         try:
             timed_get(server, "cold")
         finally:
             server.close()
-    server = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock,
-                          monotonic=lambda: mono[0]).serve("127.0.0.1", 0)
+    _, server = serve_app()
     try:
         get_metrics(server)
         for _ in range(SERVE_TIMED):
@@ -2803,6 +2823,579 @@ def push_phase(torch: Any, clock: Callable[[], float], smi: str) -> tuple[int, d
     return launches, out
 
 
+def _main_of(body: str) -> str:
+    found = re.search(r"<main>(.*)</main>", body, re.S)
+    check(found is not None, "a page without <main>")
+    return found.group(1)
+
+
+def _replica_entry_point(url: str, leader: Any, wall: list[float]) -> dict[str, Any]:
+    """Step 20's entry point: ``python -m headlamp_tpu_torch.server
+    --replica URL`` as a process of its own on the card (the default
+    device), polled until its /healthz reads role replica, device cuda
+    and one applied record; its /tpu ``<main>`` equals the leader's,
+    painted at the same wall time (age cells are relative). Interrupted
+    and joined before this returns."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "headlamp_tpu_torch.server", "--replica", url, "--port",
+         str(port)],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        health: dict[str, Any] = {}
+        deadline = time.monotonic() + 180.0
+        while True:
+            if proc.poll() is not None:
+                raise SmokeFailure(f"the replica process exited: {proc.communicate()}")
+            check(time.monotonic() < deadline, f"the replica process never applied: {health}")
+            try:
+                status, _, body, _ = _keepalive_get(port, "/healthz")
+            except OSError:
+                time.sleep(0.2)
+                continue
+            health = json.loads(body)
+            block = health["runtime"].get("replication", {})
+            if block.get("applied", 0) >= 1:
+                break
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        check(health["runtime"]["replication"]["role"] == "replica"
+              and health["runtime"]["device"]["torch_device"].startswith("cuda")
+              and health["runtime"]["replication"]["last_generation"]
+              == leader.snapshot_generation(),
+              f"the replica process's /healthz: {health['runtime'].get('replication')}, "
+              f"{health['runtime']['device']}")
+        wall[0] = time.time()
+        status, _, body, replica_ms = _keepalive_get(port, "/tpu")
+        want = leader.handle("/tpu")
+        check(status == want[0] == 200 and _main_of(body.decode()) == _main_of(want[2]),
+              "the replica process's /tpu differs from the leader's")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        wall[0] = FIXED_CLOCK
+    check(proc.returncode == 0, f"the replica process exited {proc.returncode}: {err[-2000:]}")
+    print(f"replication: python -m headlamp_tpu_torch.server --replica {url}: applied "
+          f"{health['runtime']['replication']['applied']} record(s) {ready_s:.2f} s after start, "
+          f"/healthz role replica on {health['runtime']['device']['torch_device']}, first /tpu "
+          f"{replica_ms:.1f} ms with the leader's <main>; SIGINT exit 0; banner "
+          f"{out.strip().splitlines()[:1]}")
+    return {"process_ready_s": ready_s, "process_first_tpu_ms": replica_ms}
+
+
+def replication_phase(torch: Any, smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 20: provenance and replication on the card. A leader
+    ``DashboardApp`` elected on an injected lease clock (fencing 1, its
+    generations floored at 1 000 000) publishes on ``/replicate/bus`` at
+    ``fleet_viewport(1024)`` with the demo Prometheus; one /tpu/metrics GET
+    is its refit (1 launch), and the next generation ships that forecast.
+    Two ``ReplicaApp``s on the card, each served, pull it through
+    ``BusConsumer`` over ``pool_fetch``. For that generation their eight
+    pages equal the leader's byte for byte over the socket, with the
+    leader's ETags and a 304 for a leader ETag; the replica's rollup on
+    the card equals the Python oracle; a node flip is the same /events
+    frame on the leader and a replica; the replicas' metrics paints
+    launch nothing. The poll trace names the publishing trace and the
+    leader's bus serve names the poll. The failover drill on injected
+    clocks: the leader's socket closes, the replicas answer every page
+    with ``X-Headlamp-Stale: 1`` and no 5xx, a new leader is elected at
+    fencing 2 and floors at 2 000 000, an old-band publish is
+    ``rejected_stale``, both replicas converge. The real entry point
+    ``--replica`` runs once as a process against the new leader. Then
+    full width, ``fleet_viewport(16384)``: record bytes, the
+    ``replicate.publish`` span beside ``push.diff`` in a changed tick, the
+    cursor-0 pull, apply, publish→apply lag, a replica's first /tpu and
+    /tpu/fleet after an apply, its registry's capture and memory, and a
+    leader's /healthz and /tpu sent while a publish encodes.
+    Returns the launches and the numbers."""
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import slo
+    from headlamp_tpu_torch.obs.trace import trace_ring
+    from headlamp_tpu_torch.replicate import (
+        BusConsumer,
+        BusPublisher,
+        LeaderElector,
+        LeaseStore,
+        ReplicaApp,
+        generation_floor,
+        parse_payload,
+        pool_fetch,
+    )
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp
+    from headlamp_tpu_torch.server.demo import add_demo_prometheus
+    from headlamp_tpu_torch.transport import ConnectionPool
+
+    LAUNCHES.reset()
+    segments: dict[str, int] = {}
+
+    def segment(name: str, want: int) -> None:
+        torch.cuda.synchronize()
+        n = LAUNCHES.n - sum(segments.values())
+        segments[name] = n
+        check(n == want, f"step 20's {name} launched forecast_mlp_forward {n} times, not {want}")
+
+    out: dict[str, Any] = {}
+    t_step = time.perf_counter()
+    warm_carries.invalidate()
+    engine = slo.SLOEngine()
+    wall = [FIXED_CLOCK]
+    mono = [20000.0]
+    lease_mono = [0.0]
+    fleet = fleet_viewport(PUSH_NODES)
+    transport = fleet_transport(fleet)
+    add_demo_prometheus(transport, fleet)
+    store = LeaseStore(monotonic=lambda: lease_mono[0])
+
+    def leader_app(t: Any, node_id: str) -> tuple[Any, Any, Any, Any]:
+        app = DashboardApp(t, device="cuda", clock=lambda: wall[0], monotonic=lambda: mono[0],
+                           min_sync_interval_s=3600.0)
+        # Measured timings stay out of the history, so /tpu/trends compares.
+        app.history.capture_timings = False
+        pub = BusPublisher(monotonic=lambda: mono[0], wall=lambda: wall[0], ledger=app.ledger)
+        app.replication = pub
+
+        def elected(fencing: int) -> None:
+            pub.set_fencing(fencing)
+            app._ctx.advance_generation_floor(generation_floor(fencing))
+
+        elector = LeaderElector(store, node_id, ttl_s=15.0, monotonic=lambda: lease_mono[0],
+                                on_elected=elected, ledger=app.ledger)
+        app.ensure_gateway(engine=lambda: engine)
+        return app, pub, elector, app.serve("127.0.0.1", 0)
+
+    def sync_now(app: Any, server: Any) -> None:
+        """One inline sync on the leader, through a page request: without
+        watch every sync re-lists, so each is a new generation."""
+        app._last_sync = float("-inf")
+        check(http_get(server.url + "/tpu")[0] == 200, "GET /tpu on the leader")
+
+    def get(server: Any, path: str, headers: dict[str, str] | None = None) -> tuple:
+        return _keepalive_get(int(server.url.rsplit(":", 1)[1]), path, headers=headers)
+
+    leader, pub, elector, server = leader_app(transport, "leader-a")
+    replicas: list[Any] = []
+    servers: list[Any] = []
+    pool = ConnectionPool()
+    leader2 = server2 = None
+    try:
+        check(elector.tick() and elector.fencing == 1, "leader-a was not elected")
+        check(http_get(server.url + "/tpu/metrics")[0] == 200, "GET /tpu/metrics on the leader")
+        check(leader.snapshot_generation() == generation_floor(1) + 1,
+              f"leader generation {leader.snapshot_generation()}")
+        segment("leader refit", 1)
+        sync_now(leader, server)  # this generation ships the forecast
+        gen = leader.snapshot_generation()
+        check(pub.last_generation == gen and pub.published == 2,
+              f"published {pub.counters()}, generation {gen}")
+        consumers = []
+        for _ in range(2):
+            rep = ReplicaApp(device="cuda", clock=lambda: wall[0], monotonic=lambda: mono[0])
+            rep.history.capture_timings = False
+            consumers.append(BusConsumer(rep, pool_fetch(server.url, pool=pool)))
+            rep.ensure_gateway(engine=lambda: engine)
+            replicas.append(rep)
+            servers.append(rep.serve("127.0.0.1", 0))
+        polls = [c.poll_once() for c in consumers]
+        check(polls == [2, 2] and all(r.snapshot_generation() == gen for r in replicas),
+              f"the replicas applied {polls}")
+        check(replicas[0]._bus_forecast is not None
+              and replicas[0]._bus_forecast.inference_path == "cuda",
+              "the record shipped no forecast from the kernel")
+
+        # Provenance: the poll trace names the publishing trace, the bus
+        # serve names the poll.
+        ring = trace_ring.snapshot()
+        poll = next(t for t in ring if t["route"] == "/replicate/poll")
+        serve = next(t for t in ring if t["route"] == "/replicate/bus")
+        publishing = leader.ledger.provenance(gen)["trace_id"]
+        check(any(t["trace_id"] == publishing and t["route"] == "/tpu" for t in ring)
+              and poll["remote_parent"] == publishing
+              and serve["remote_parent"] == poll["trace_id"],
+              f"provenance: poll {poll.get('remote_parent')}, serve {serve.get('remote_parent')}, "
+              f"publisher {publishing}")
+        print(f"replication: poll trace {poll['trace_id']} -> remote_parent {publishing} (the "
+              f"leader's /tpu that published g{gen}); bus serve {serve['trace_id']} -> "
+              f"remote_parent {poll['trace_id']}")
+
+        # Identity, page by page, over the sockets.
+        pages = ("/tpu", "/tpu/nodes", "/tpu/pods", "/tpu/topology", "/tpu/metrics",
+                 "/tpu/deviceplugins", "/tpu/fleet", "/tpu/trends")
+        sizes = {}
+        for path in pages:
+            lead = get(server, path)
+            check(lead[0] == 200, f"GET {path} on the leader: {lead[0]}")
+            etag = lead[1].get("ETag")
+            for i, rserver in enumerate(servers):
+                repl = get(rserver, path)
+                check(repl[0] == 200 and repl[2] == lead[2],
+                      f"replica {i} {path} differs from the leader's ({repl[0]})")
+                check(repl[1].get("ETag") == etag and repl[1].get("X-Headlamp-Stale") == "0",
+                      f"replica {i} {path} ETag {repl[1].get('ETag')} vs {etag}")
+                check(get(rserver, path, {"If-None-Match": etag})[0] == 304,
+                      f"replica {i} {path}: the leader's ETag is no 304")
+            sizes[path] = len(lead[2])
+        segment("replica paints", 0)
+        state = replicas[0]._last_snapshot.provider("tpu")
+        got = state.fleet_stats()
+        want = stats.python_fleet_stats(state.view)
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        check(state.device.type == "cuda" and not bad,
+              f"the replica's card rollup differs from the oracle in {bad}")
+        print(f"replication: g{gen} at {PUSH_NODES} nodes: 2 replicas' {', '.join(pages)} "
+              f"equal the leader's bytes ({json.dumps(sizes)}), ETags equal, the leader's ETag "
+              f"a 304 on each; the replica's rollup on the card equals python_fleet_stats; "
+              f"replica /tpu/metrics launched 0")
+
+        # A fleet flip: the same /events frame on the leader and a replica.
+        clients = [_SseClient(int(s.url.rsplit(":", 1)[1]), "/events")
+                   for s in (server, servers[0])]
+        try:
+            node = _flip_ready(leader, transport, 5)
+            sync_now(leader, server)
+            check(consumers[0].poll_once() == 1 and consumers[1].poll_once() == 1,
+                  "the flip's record did not apply")
+            frames = [c.next_event() for c in clients]
+        finally:
+            for c in clients:
+                c.close()
+        check(frames[0] == frames[1] and frames[0]["event"] == "delta"
+              and node in json.dumps(frames[0]["data"]),
+              f"/events on the leader and the replica: {frames}")
+        segment("flip", 0)
+        print(f"replication: a Ready flip of {node}: the leader's and the replica's /events "
+              f"read the same frame ({frames[0]['id']}, {frames[0]['bytes']} bytes)")
+
+        # Failover on injected clocks: the leader's socket goes away.
+        old_gen = leader.snapshot_generation()
+        server.close()
+        server = None
+        mono[0] += 31.0
+        check([c.poll_once() for c in consumers] == [0, 0]
+              and all(c.fetch_failures == 1 for c in consumers)
+              and all(r.stale() for r in replicas), "the replicas did not notice the dead leader")
+        statuses = []
+        for rserver in servers:
+            for path in pages:
+                status, headers, _, _ = get(rserver, path)
+                statuses.append(status)
+                check(status == 200 and headers.get("X-Headlamp-Stale") == "1",
+                      f"a stale replica answered {path} with {status}, stale "
+                      f"{headers.get('X-Headlamp-Stale')}")
+        check(not any(s >= 500 for s in statuses), f"5xx during failover: {statuses}")
+        lease_mono[0] += 16.0  # leader-a's lease lapses unrenewed
+        leader2, pub2, elector2, server2 = leader_app(transport, "leader-b")
+        check(elector2.tick() and elector2.fencing == 2, f"leader-b fencing {elector2.fencing}")
+        check(not elector.tick() and elector.depositions == 1, "leader-a was not deposed")
+        sync_now(leader2, server2)
+        new_gen = leader2.snapshot_generation()
+        check(new_gen == generation_floor(2) + 1, f"leader-b generation {new_gen}")
+        check(not pub2.publish(leader._last_snapshot, generation=old_gen + 1)
+              and pub2.rejected_stale == 1, "an old-band publish was accepted")
+        for c in consumers:
+            c._fetch = pool_fetch(server2.url, pool=pool)
+        check([c.poll_once() for c in consumers] == [1, 1]
+              and all(r.snapshot_generation() == new_gen and not r.stale() for r in replicas),
+              "the replicas did not converge on leader-b")
+        for rserver in servers:
+            status, headers, body, _ = get(rserver, "/tpu")
+            check(status == 200 and headers.get("X-Headlamp-Stale") == "0"
+                  and headers.get("X-Headlamp-Generation") == str(new_gen)
+                  and body == get(server2, "/tpu")[2], f"a converged replica: {status} {headers}")
+        # leader-a's next generation sits in the lower band: fenced out.
+        _, records = parse_payload(pub.payload_after(None))
+        stale_record = dict(records[-1], generation=old_gen + 1)
+        check(not replicas[0].apply_record(stale_record) and replicas[0].rejected_stale == 1,
+              "a replica applied a deposed leader's record")
+        segment("failover", 0)
+        print(f"replication: failover: leader-a closed, {len(statuses)} stale paints on 2 "
+              f"replicas (X-Headlamp-Stale 1, 0 5xx); leader-b elected at fencing 2, generation "
+              f"{new_gen}; an old-band publish rejected_stale; both replicas converged, stale 0")
+
+        # The real entry point, as a process of its own.
+        out.update(_replica_entry_point(server2.url, leader2, wall))
+        segment("entry point", 0)
+    finally:
+        for s in servers:
+            s.close()
+        for s in (server, server2):
+            if s is not None:
+                s.close()
+        pool.close()
+
+    # Full width.
+    out.update(_replication_at_width(torch, smi))
+    segment("full width", 0)
+    launches = LAUNCHES.n
+    check(launches == sum(segments.values()) == REPLICATION_LAUNCHES,
+          f"step 20 launched {launches} ({segments}), not {REPLICATION_LAUNCHES}")
+    out["seconds"] = time.perf_counter() - t_step
+    print(f"replication: step 20 launched forecast_mlp_forward {launches} times, by segment "
+          f"{json.dumps(segments)}; took {out['seconds']:.1f} s")
+    return launches, out
+
+
+def _replication_at_width(torch: Any, smi: str) -> dict[str, Any]:
+    """Step 20b at ``fleet_viewport(16384)``, on real clocks, under a fresh
+    program registry: a replica's ``serve()`` captures its startup set
+    (capture ms, card memory); a leader with background sync publishes
+    its hydrating tick and two changed ticks; the replica catches up with
+    a cursor-0 pull and applies each record; its first /tpu and /tpu/fleet
+    after the apply pay the encode and the upload; then a consumer thread
+    every LIVE_INTERVAL_S and LIVE_CHANGED_TICKS more changed ticks, each
+    with its ``replicate.publish`` and ``push.diff`` spans and the applied
+    stamp's lag from the publish; last, the leader's paints during one
+    more changed tick's publish. Each changed tick publishes the full
+    snapshot; the records ship no metrics (no /tpu/metrics at this size)."""
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.obs import graphcost, slo
+    from headlamp_tpu_torch.replicate import (
+        BusConsumer,
+        BusPublisher,
+        ReplicaApp,
+        parse_payload,
+        pool_fetch,
+    )
+    from headlamp_tpu_torch.server import DashboardApp
+    from headlamp_tpu_torch.transport import ConnectionPool
+
+    n = LIVE_NODES[-1]
+    engine = slo.SLOEngine()
+    out: dict[str, Any] = {"nodes": n}
+    pool = ConnectionPool()
+    server = rserver = None
+    with _Registry(aot.AotProgramRegistry(), graphcost.GraphCostLedger()) as reg:
+        try:
+            # The replica first, so nothing else runs on the card while its
+            # registry captures.
+            torch.cuda.synchronize()
+            mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+            replica = ReplicaApp(device="cuda")
+            replica.ensure_gateway(engine=lambda: engine)
+            t0 = time.perf_counter()
+            rserver = replica.serve("127.0.0.1", 0)
+            check(reg.wait_ready(600.0), "the replica's registry capture did not finish")
+            ready_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+            snap = reg.snapshot()
+            check(snap["compile_errors"] == 0 and snap["state"] == "ready",
+                  f"the replica's registry: {snap}")
+            out.update(registry_capture_ms=snap["compile_ms_total"], registry_ready_s=ready_s,
+                       registry_allocated_bytes=mem1[0] - mem0[0],
+                       registry_reserved_bytes=mem1[1] - mem0[1],
+                       registry_programs=snap["programs_compiled"])
+            print(f"replication: a replica's serve() captured {snap['programs_compiled']} "
+                  f"programs in {snap['compile_ms_total']} ms (ready {ready_s:.2f} s after "
+                  f"serve()); card memory +{(mem1[0] - mem0[0]) / 2**20:.1f} MiB allocated, "
+                  f"+{(mem1[1] - mem0[1]) / 2**20:.1f} MiB reserved; on {smi}")
+
+            transport = fleet_transport(fleet_viewport(n))
+            leader = DashboardApp(transport, device="cuda", min_sync_interval_s=3600.0)
+            pub = BusPublisher(ledger=leader.ledger)
+            leader.replication = pub
+            leader.ensure_gateway(engine=lambda: engine)
+            ticks: list[dict[str, Any]] = []
+            run_tick = leader._background_tick
+
+            def recorded_tick() -> None:
+                run_tick()
+                ticks.append(leader.last_tick_trace)
+
+            leader._background_tick = recorded_tick
+            server = leader.serve("127.0.0.1", 0)
+
+            def publishing_tick(gen: int) -> dict[str, Any]:
+                """The first tick whose publish span carries ``gen``: the
+                changed tick (later quiet ticks offer the same generation
+                and are rejected as stale)."""
+                def found() -> dict[str, Any] | None:
+                    for t in list(ticks):
+                        for s in t["spans"]:
+                            if s["name"] == "replicate.publish" and s["attrs"].get(
+                                    "generation") == gen:
+                                return t
+                    return None
+
+                _wait_for(lambda: found() is not None, f"the tick that published g{gen}")
+                return found()
+
+            leader.start_background_sync(LIVE_INTERVAL_S)
+            _wait_for(lambda: pub.published >= 1, "the hydrating tick's publish")
+            changed = []
+            for i in range(2):
+                published = pub.published
+                _flip_ready(leader, transport, 100 + i)
+                leader._background_wake.set()
+                _wait_for(lambda: pub.published == published + 1, "a changed tick's publish")
+                changed.append(publishing_tick(pub.last_generation))
+            record_bytes = [len(line) for _, line in pub._backlog]
+
+            # The cursor-0 catch-up pull, then each record's apply.
+            fetch = pool_fetch(server.url, pool=pool, timeout_s=120.0)
+            t0 = time.perf_counter()
+            payload = fetch(0)
+            pull_ms = (time.perf_counter() - t0) * 1e3
+            _, records = parse_payload(payload)
+            apply_ms = []
+            for record in records:
+                t0 = time.perf_counter()
+                check(replica.apply_record(record), f"g{record['generation']} did not apply")
+                apply_ms.append((time.perf_counter() - t0) * 1e3)
+            check(replica.snapshot_generation() == pub.last_generation,
+                  "the catch-up left the replica behind")
+            rport = int(rserver.url.rsplit(":", 1)[1])
+            first: dict[str, list[float]] = {}
+            for path in ("/tpu", "/tpu/fleet", "/tpu", "/tpu/fleet"):
+                status, _, _, ms = _keepalive_get(rport, path)
+                check(status == 200, f"replica GET {path} at {n} nodes: {status}")
+                first.setdefault(path, []).append(ms)
+            out.update(record_bytes=record_bytes, pull_bytes=len(payload), pull_ms=pull_ms,
+                       pull_records=len(records), apply_ms=apply_ms, first_paint_ms=first)
+            print(f"replication: {n} nodes, record bytes {record_bytes}; cursor-0 pull of "
+                  f"{len(records)} records, {len(payload)} bytes in {pull_ms:.1f} ms; apply ms "
+                  f"{[round(x, 1) for x in apply_ms]}; replica /tpu first {first['/tpu'][0]:.1f} "
+                  f"ms then {first['/tpu'][1]:.1f}, /tpu/fleet first "
+                  f"{first['/tpu/fleet'][0]:.1f} ms then {first['/tpu/fleet'][1]:.1f}")
+
+            # Publish -> apply lag, with the consumer on its thread.
+            consumer = BusConsumer(replica, fetch, interval_s=LIVE_INTERVAL_S)
+            consumer.cursor = replica.snapshot_generation()
+            consumer.start()
+            lags = []
+            for i in range(LIVE_CHANGED_TICKS):
+                target = replica.snapshot_generation() + 1
+                _flip_ready(leader, transport, 200 + i)
+                leader._background_wake.set()
+
+                def applied() -> dict[str, Any] | None:
+                    # The snapshot flips before the ledger's stamp: wait on the stamp.
+                    return next((g for g in replica.ledger.snapshot()["generations"]
+                                 if g["generation"] == target and "applied" in g["stages"]), None)
+
+                _wait_for(lambda: applied() is not None, f"the replica's apply of g{target}")
+                changed.append(publishing_tick(target))
+                lags.append(applied()["stages"]["applied"]["lag_ms"])
+            consumer.stop()
+            check(consumer.errors == 0 and consumer.fetch_failures == 0,
+                  f"the consumer thread: {consumer.snapshot()}")
+            tick_rows = [{"tick_ms": t["duration_ms"],
+                          "push_diff_ms": span_totals(t)["push.diff"],
+                          "publish_ms": span_totals(t)["replicate.publish"]} for t in changed]
+            out.update(changed_ticks=tick_rows, publish_to_apply_ms=lags)
+            print(f"replication: changed ticks at {n} nodes (tick, push.diff, "
+                  f"replicate.publish ms, publish share): "
+                  + "; ".join(f"{r['tick_ms']:.1f}, {r['push_diff_ms']:.1f}, "
+                              f"{r['publish_ms']:.1f}, {r['publish_ms'] / r['tick_ms']:.3f}"
+                              for r in tick_rows)
+                  + f"; publish->apply lag ms {lags} (consumer every {LIVE_INTERVAL_S} s); "
+                  f"on {smi}")
+            out["leader_paints_during_publish"] = _leader_paints_during_publish(
+                leader, transport, pub, int(server.url.rsplit(":", 1)[1]), smi)
+        finally:
+            if rserver is not None:
+                rserver.close()
+            if server is not None:
+                server.close()
+            pool.close()
+    return out
+
+
+#: A client in a process of its own: it GETs each path in a loop on a
+#: keep-alive connection for argv[2] seconds and prints
+#: [path, status, start, end] rows on the system-wide monotonic clock. A
+#: thread of the server's process could not send while a publish holds
+#: the interpreter.
+_LOOP_CLIENT = """
+import http.client, json, sys, threading, time
+port, seconds, paths = int(sys.argv[1]), float(sys.argv[2]), sys.argv[3:]
+rows = []
+def loop(path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        t0 = time.monotonic()
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        resp.read()
+        rows.append([path, resp.status, t0, time.monotonic()])
+threads = [threading.Thread(target=loop, args=(p,)) for p in paths]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps(rows))
+"""
+
+
+def _leader_paints_during_publish(leader: Any, transport: Any, pub: Any, port: int,
+                                  smi: str) -> dict[str, Any]:
+    """A leader's /healthz and /tpu while a changed tick's publish encodes
+    its record (the bus lock is held for the whole encode), from a client
+    process that loops on both paths: the requests finished before the
+    flip are the quiet ones, those that overlap the publish are timed
+    beside it. Quiet ticks' publishes, rejected as stale, are not
+    timed."""
+    paths = ("/healthz", "/tpu")
+    window: dict[str, float] = {}
+    real_publish = pub.publish
+
+    def timed_publish(snap: Any, *, generation: int, **kwargs: Any) -> bool:
+        if "t0" in window or int(generation) <= pub.last_generation:
+            return real_publish(snap, generation=generation, **kwargs)
+        window["t0"] = time.monotonic()
+        try:
+            return real_publish(snap, generation=generation, **kwargs)
+        finally:
+            window["t1"] = time.monotonic()
+
+    proc = subprocess.Popen([sys.executable, "-c", _LOOP_CLIENT, str(port), "10.0", *paths],
+                            stdout=subprocess.PIPE, text=True)
+    pub.publish = timed_publish
+    try:
+        time.sleep(2.0)
+        flip = time.monotonic()
+        published = pub.published
+        _flip_ready(leader, transport, 300)
+        leader._background_wake.set()
+        _wait_for(lambda: pub.published == published + 1, "the measured tick's publish")
+        stdout, _ = proc.communicate(timeout=120)
+    finally:
+        pub.publish = real_publish
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"the loop client exited {proc.returncode}")
+    rows = json.loads(stdout)
+    check(all(status == 200 for _, status, _, _ in rows), "a leader GET during publish failed")
+    t0, t1 = window["t0"], window["t1"]
+    out: dict[str, Any] = {"publish_ms": (t1 - t0) * 1e3}
+    for path in paths:
+        mine = [(a, b) for p, _, a, b in rows if p == path]
+        quiet = [(b - a) * 1e3 for a, b in mine if b < flip]
+        during = [(b - a) * 1e3 for a, b in mine if a < t1 and b > t0]
+        check(quiet and during, f"no {path} request before the flip or during the publish")
+        out[path] = {"quiet_p50_ms": statistics.median(quiet), "during_ms": during}
+    print(f"replication: leader paints from a client process during a publish of "
+          f"{out['publish_ms']:.1f} ms (quiet p50, then each request that overlapped it): "
+          + "; ".join(f"{p} {out[p]['quiet_p50_ms']:.1f}, "
+                      f"{[round(x, 1) for x in out[p]['during_ms']]}" for p in paths)
+          + f"; on {smi}")
+    return out
+
+
 def re_cursor(body: str) -> str:
     """The next-window cursor a windowed page links to."""
     found = re.search(r'cursor=([A-Za-z0-9_-]+)" class="hl-res-link hl-cursor-next"', body)
@@ -3105,6 +3698,11 @@ def main() -> int:
     #     and /events over the socket, and paints through the fragment
     #     cache against the oracle.
     push_launches, _push_row = push_phase(torch, clock, smi)
+
+    # 20. Provenance and replication: a leader's bus, two replicas on the
+    #     card, the failover drill, the --replica entry point, and the
+    #     bus's costs at 16384 nodes.
+    replication_launches, _replication_row = replication_phase(torch, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -3133,7 +3731,7 @@ def main() -> int:
         "launches": (page_launches + scale_launches + one_launches + serve_launches
                      + cluster_launches + viewport_launches + live_launches + registry_launches
                      + mesh_launches + replay_launches + telemetry_launches
-                     + gateway_launches + push_launches),
+                     + gateway_launches + push_launches + replication_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -3146,7 +3744,8 @@ def main() -> int:
                              "record_replay": replay_launches,
                              "slo_self_forecast": telemetry_launches,
                              "gateway_and_transport": gateway_launches,
-                             "push_and_fragments": push_launches},
+                             "push_and_fragments": push_launches,
+                             "replication": replication_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

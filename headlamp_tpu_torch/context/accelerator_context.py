@@ -234,6 +234,18 @@ class AcceleratorDataContext:
         #: from False to True.
         self._changed = True
 
+    def advance_generation_floor(self, floor: int) -> None:
+        """Raise the generation counter to at least ``floor``: a newly
+        elected replication leader floors its context at ``fencing ×
+        GENERATION_STRIDE``, so every generation it publishes carries its
+        term in the high digits and replicas reject a deposed leader's
+        lower band by plain monotonicity. Never moves backwards. The
+        cached snapshot's views carry pre-floor versions, so the next
+        build restamps them."""
+        if floor > self._snapshot_generation:
+            self._snapshot_generation = int(floor)
+            self._changed = True
+
     # ------------------------------------------------------------------
     # Track 1: reactive lists
     # ------------------------------------------------------------------

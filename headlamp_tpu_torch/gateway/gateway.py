@@ -30,8 +30,11 @@ not the app, so tests drive it with fakes. It adopts the app's push
 pipeline (:meth:`RenderGateway.attach_push`): its snapshot then counts
 the SSE connections, which live in the hub and never in the render
 pool, and the hub sheds debug-class streams off this gateway's policy.
-``traceparent`` forwarding of the JAX gateway is not part of this
-package yet.
+An inbound ``traceparent`` rides into the render that answers it: the
+coalescing leader's does, a follower's is dropped (its bytes came from a
+render it did not cause). It is forwarded as a keyword only when present,
+so handle callables without the parameter keep working; the gateway
+never writes the header.
 """
 
 from __future__ import annotations
@@ -236,14 +239,20 @@ class RenderGateway:
     # -- the request path ------------------------------------------------
 
     def handle(
-        self, path: str, *, accept: str | None = None, if_none_match: str | None = None
+        self,
+        path: str,
+        *,
+        accept: str | None = None,
+        if_none_match: str | None = None,
+        traceparent: str | None = None,
     ) -> GatewayResponse:
         route = self._route_label(path)
         if route == "/healthz":
             # Liveness bypass: no queue, no shed, no coalescing.
             self.bypassed += 1
             _REQUESTS.inc(priority="ops", outcome="bypass")
-            return GatewayResponse(*self._handle(path, accept=accept))
+            extra = dict(traceparent=traceparent) if traceparent else {}
+            return GatewayResponse(*self._handle(path, accept=accept, **extra))
         priority = self.classify(route)
         pname = PRIORITY_NAMES[priority]
         decision = self.shed_policy.decide(route, priority)
@@ -275,13 +284,17 @@ class RenderGateway:
             if not leader:
                 return self._follow(flight, route, pname, decision.burn_state)
             try:
-                response = self._render(path, route, priority, pname, accept, decision)
+                response = self._render(
+                    path, route, priority, pname, accept, decision, traceparent=traceparent
+                )
             except BaseException as exc:
                 self.coalescer.finish(key, flight, error=exc)
                 raise
             self.coalescer.finish(key, flight, result=response)
             return response
-        return self._render(path, route, priority, pname, accept, decision)
+        return self._render(
+            path, route, priority, pname, accept, decision, traceparent=traceparent
+        )
 
     def _follow(
         self, flight: Flight, route: str, pname: str, burn_state: dict[str, str]
@@ -307,7 +320,7 @@ class RenderGateway:
 
     def _render(
         self, path: str, route: str, priority: int, pname: str, accept: str | None,
-        decision: Decision,
+        decision: Decision, *, traceparent: str | None = None,
     ) -> GatewayResponse:
         """Admit into the pool and wait. Every 503 here is the gateway's
         own: requests_total only (the handler never ran)."""
@@ -318,8 +331,10 @@ class RenderGateway:
             wait_s = self._monotonic() - admitted_mono
             _QUEUE_WAIT.observe(wait_s, priority=pname)
             info = {"priority": pname, "queue_wait_ms": round(wait_s * 1e3, 3), "degraded": degraded}
+            # Only the leader's traceparent reaches a render.
+            extra = dict(traceparent=traceparent) if traceparent else {}
             with degraded_scope(degraded):
-                return self._handle(path, accept=accept, gateway_info=info)
+                return self._handle(path, accept=accept, gateway_info=info, **extra)
 
         try:
             job = self.pool.submit(route, priority, run)

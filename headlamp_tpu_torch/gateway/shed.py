@@ -16,9 +16,9 @@ pages,
 The engine's state is cached for ``ttl_s`` on the injected monotonic:
 burn windows are minutes wide, and the gateway sits on every request.
 :meth:`ShedPolicy.paging` is the push hub's shed check: the same
-condition closes debug-class ``/events`` streams. The replica stale-feed
-probe of the JAX policy belongs to replication, which is not part of
-this package yet.
+condition closes debug-class ``/events`` streams. A replica sets
+:attr:`ShedPolicy.degraded_probe` to its stale-feed check: while the bus
+is quiet every interactive render is degraded, whatever the burn rate.
 """
 
 from __future__ import annotations
@@ -85,6 +85,13 @@ class ShedPolicy:
         self._engine = engine or slo_mod.engine
         self.ttl_s = ttl_s
         self._monotonic = monotonic or time.monotonic
+        #: A degrade condition beside the burn rate: a replica whose bus
+        #: feed went quiet degrades every interactive render (the same
+        #: cache-only reads and ``X-Headlamp-Stale: 1``). A probe that
+        #: raises is counted in ``probe_errors`` and reads as stale: a
+        #: feed nobody can vouch for is not fresh.
+        self.degraded_probe: Callable[[], bool] | None = None
+        self.probe_errors = 0
         self._cached_at: float | None = None
         self._cached_states: dict[str, str] = {}
         #: Route labels governed by a paging request-backed objective,
@@ -139,6 +146,17 @@ class ShedPolicy:
 
     def decide(self, route: str, priority: int) -> Decision:
         states = self.states()
+        probe = self.degraded_probe
+        if probe is not None and priority == PRIORITY_INTERACTIVE:
+            try:
+                stale = bool(probe())
+            except Exception:  # noqa: BLE001 — counted; an unknown feed reads as stale
+                self.probe_errors += 1
+                stale = True
+            if stale:
+                # The data itself is stale, not one objective's routes.
+                self._notify("degrade", route=route, reason="stale_feed")
+                return Decision(degraded=True, burn_state=states)
         if not self._paging_routes:
             return Decision(burn_state=states)
         if priority == PRIORITY_DEBUG:

@@ -57,11 +57,17 @@ def wide_event(
     violations: tuple[str, ...] | list[str] = (),
     counters_before: Mapping[str, Any] | None = None,
     counters_after: Mapping[str, Any] | None = None,
+    gateway: Mapping[str, Any] | None = None,
+    replication: Mapping[str, Any] | None = None,
 ) -> dict[str, Any]:
     """One request's flight-recorder event. ``trace`` is the frozen trace
     dict the trace ring records; its top-level spans become the stage
-    durations (name → ms), the nested detail stays in the ring. (JAX's
-    gateway and replication blocks come with those slices.)"""
+    durations (name → ms), the nested detail stays in the ring.
+    ``gateway`` is the admission story of a request the gateway admitted
+    (priority class, queue wait, degraded flag): it tells a slow queue
+    from a slow render. ``replication`` is the replication role, the
+    applied generation and the bus cursor: it tells whether the paint
+    served stale data."""
     stages: dict[str, float] = {}
     trace_id = None
     if trace is not None:
@@ -80,6 +86,10 @@ def wide_event(
     }
     if counters_before is not None and counters_after is not None:
         event["counters"] = counters_delta(counters_before, counters_after)
+    if gateway is not None:
+        event["gateway"] = dict(gateway)
+    if replication is not None:
+        event["replication"] = dict(replication)
     return event
 
 

@@ -4,9 +4,11 @@ The port's copy of ``headlamp_tpu/obs/ledger.py``. A snapshot generation
 lives through up to six stages: scraped (``scrape_start``), classified
 into a snapshot (``synced``), encoded onto a bus (``published``),
 decoded on a replica (``applied``), diffed into push frames
-(``diff_framed``) and painted for a user (``first_paint``). The port's
-host stamps the scrape, the sync and the first paint; the bus, replica
-and push stamps are here for the replication and push slices.
+(``diff_framed``) and painted for a user (``first_paint``). The host
+stamps the scrape, the sync, the diff and the first paint; a
+``replicate.BusPublisher`` stamps ``published`` and ships the
+generation's provenance on its record; a ``replicate.ReplicaApp`` stamps
+``applied`` against it; the leader elector notes each transition.
 
 :class:`GenerationLedger` stamps each stage on injected clocks (the
 monotonic one for every elapsed number, the wall one for display stamps

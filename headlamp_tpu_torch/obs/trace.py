@@ -93,6 +93,16 @@ class span:
         return False
 
 
+def set_remote_parent(trace_id: str | None) -> None:
+    """Link the calling context's trace to a trace in another process
+    (no-op outside a trace or with a None id): the seam a replica's apply
+    uses when the leader's trace id becomes known mid-trace, from the bus
+    record, after the poll trace opened."""
+    trace = _TRACE.get()
+    if trace is not None and trace_id:
+        trace.remote_parent = trace_id
+
+
 def annotate(**attrs: Any) -> None:
     """Attach attributes to the innermost open span (no-op without one)."""
     node = _ACTIVE.get()
@@ -102,14 +112,23 @@ def annotate(**attrs: Any) -> None:
 
 class Trace:
     """One request's span tree plus display metadata. ``trace_id`` is a
-    process-unique 16-hex id."""
+    process-unique 16-hex id. ``remote_parent`` is the trace id of the
+    request in another process this trace continues (a leader's bus
+    serve joins the polling replica's trace, a replica's apply joins the
+    leader's publishing trace): a link, never an identity override."""
 
-    __slots__ = ("path", "started_at", "trace_id", "root", "route", "status", "device_gets")
+    __slots__ = (
+        "path", "started_at", "trace_id", "remote_parent", "root", "route", "status",
+        "device_gets",
+    )
 
-    def __init__(self, path: str, *, started_at: float = 0.0) -> None:
+    def __init__(
+        self, path: str, *, started_at: float = 0.0, remote_parent: str | None = None
+    ) -> None:
         self.path = path
         self.started_at = started_at
         self.trace_id = os.urandom(8).hex()
+        self.remote_parent = remote_parent
         self.root = Span("request", {})
         self.route = path
         self.status = 0
@@ -125,7 +144,7 @@ class Trace:
     def to_dict(self) -> dict[str, Any]:
         t0 = self.root.t0
         end = self.root.t1 if self.root.t1 is not None else t0
-        return {
+        out = {
             "trace_id": self.trace_id,
             "path": self.path,
             "route": self.route,
@@ -135,6 +154,9 @@ class Trace:
             "device_gets": self.device_gets,
             "spans": [_span_dict(c, t0) for c in self.root.children],
         }
+        if self.remote_parent is not None:
+            out["remote_parent"] = self.remote_parent
+        return out
 
 
 def _span_dict(s: Span, t0: float) -> dict[str, Any]:
@@ -152,22 +174,32 @@ class trace_request:
     """Install a fresh trace for the calling context. Yields the Trace,
     or None when the caller opted out (``enabled=False``: health and
     metrics probes stay out of the ring) or a trace is already active.
-    ``wall`` supplies the display-only ``started_at`` stamp."""
+    ``wall`` supplies the display-only ``started_at`` stamp;
+    ``remote_parent`` is the 16-hex trace id parsed from an inbound
+    ``traceparent`` header (``obs/propagate.py``)."""
 
-    __slots__ = ("_path", "_enabled", "_wall", "_trace", "_token", "_trace_token")
+    __slots__ = (
+        "_path", "_enabled", "_wall", "_remote_parent", "_trace", "_token", "_trace_token",
+    )
 
     def __init__(
-        self, path: str, *, enabled: bool = True, wall: Callable[[], float] = time.time
+        self,
+        path: str,
+        *,
+        enabled: bool = True,
+        wall: Callable[[], float] = time.time,
+        remote_parent: str | None = None,
     ) -> None:
         self._path = path
         self._enabled = enabled
         self._wall = wall
+        self._remote_parent = remote_parent
         self._trace: Trace | None = None
 
     def __enter__(self) -> Trace | None:
         if not self._enabled or _ACTIVE.get() is not None:
             return None
-        trace = Trace(self._path, started_at=self._wall())
+        trace = Trace(self._path, started_at=self._wall(), remote_parent=self._remote_parent)
         self._trace = trace
         self._token = _ACTIVE.set(trace.root)
         self._trace_token = _TRACE.set(trace)

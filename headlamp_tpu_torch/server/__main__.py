@@ -7,6 +7,15 @@ Modes:
   ``kubectl proxy``), over a pooled keep-alive ``KubeTransport``;
 - ``--in-cluster`` — inside a pod, with the service account's token.
 
+Read-tier roles:
+- ``--replication-leader`` — publish every snapshot generation on
+  ``GET /replicate/bus``, with leader election on an in-process lease
+  store (the elected term's fencing token floors the generations);
+- ``--replica LEADER_URL`` — no cluster access: consume the bus of the
+  leader at LEADER_URL and serve every page, ``/events``, the ETags and
+  the 304s from the records it applies. It excludes the cluster modes,
+  ``--replication-leader`` and ``--background-sync``.
+
 Serves the dashboard, its fleet rollup and forecast on the CUDA card,
 until interrupted; every GET goes through the request gateway.
 ``--device cpu`` fits on the CPU with the kernel's plain version instead;
@@ -15,7 +24,8 @@ serves. ``--background-sync SECONDS`` syncs the cluster on a background
 thread with list+watch every SECONDS, so page views stop paying for
 syncs and each new snapshot's fleet columns reach the device off the
 request path. ``--active-pods-only`` drops Succeeded and Failed pods from
-the pod list at the apiserver.
+the pod list at the apiserver. Every mode, a replica's too, takes
+``--device``.
 """
 
 from __future__ import annotations
@@ -23,8 +33,27 @@ from __future__ import annotations
 import argparse
 
 from ..context.sources import ACTIVE_PODS_FIELD_SELECTOR
-from .app import DashboardApp
+from ..replicate import (
+    BusConsumer,
+    BusPublisher,
+    LeaderElector,
+    LeaseStore,
+    ReplicaApp,
+    generation_floor,
+    pool_fetch,
+)
+from .app import DashboardApp, DashboardServer
 from .demo import add_mode_arguments, transport_from_args
+
+
+def _serve_until_interrupted(server: DashboardServer, banner: str) -> None:
+    print(banner, flush=True)
+    try:
+        server.wait()
+    except KeyboardInterrupt:  # top of the process: a clean stop is the handling
+        pass
+    finally:
+        server.close()
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -41,28 +70,69 @@ def main(argv: list[str] | None = None) -> None:
         "--active-pods-only", action="store_true",
         help="server-side fieldSelector dropping Succeeded/Failed pods from the pod list",
     )
+    parser.add_argument(
+        "--replication-leader", action="store_true",
+        help="publish snapshot generations on /replicate/bus for read replicas",
+    )
+    parser.add_argument(
+        "--replica", metavar="LEADER_URL", default=None,
+        help="serve as a read replica of the leader at LEADER_URL (no cluster access)",
+    )
     args = parser.parse_args(argv)
+
+    if args.replica:
+        if (args.demo or args.apiserver or args.in_cluster or args.replication_leader
+                or args.background_sync or args.active_pods_only):
+            parser.error("--replica excludes the cluster modes, --replication-leader "
+                         "and --background-sync")
+        replica = ReplicaApp(device=args.device)
+        BusConsumer(replica, pool_fetch(args.replica)).start()
+        # The server's close() closes the replica, which stops the consumer.
+        server = replica.serve(args.host, args.port)
+        _serve_until_interrupted(
+            server,
+            f"TPU dashboard replica on {server.url}/tpu (bus {args.replica}, "
+            f"device {replica.device})",
+        )
+        return
 
     transport, mode = transport_from_args(parser, args)
     app = DashboardApp(
         transport, device=args.device,
         pod_field_selector=ACTIVE_PODS_FIELD_SELECTOR if args.active_pods_only else None,
     )
+    elector = None
+    if args.replication_leader:
+        publisher = BusPublisher(note=f"{args.host}:{args.port}", ledger=app.ledger)
+        app.replication = publisher
+
+        def elected(fencing: int) -> None:
+            # The term's band: its generations outrank every earlier term's.
+            publisher.set_fencing(fencing)
+            app._ctx.advance_generation_floor(generation_floor(fencing))
+
+        elector = LeaderElector(
+            LeaseStore(), f"{args.host}:{args.port}", on_elected=elected, ledger=app.ledger
+        )
+        publisher.elector = elector
+        elector.tick()
+        elector.start()
+        mode += ", replication leader"
     if args.background_sync:
         app.start_background_sync(args.background_sync)
     server = app.serve(args.host, args.port)
-    print(
-        f"TPU dashboard on {server.url}/tpu ({mode}, device {app.device}"
-        + (f", background sync every {args.background_sync:g} s" if args.background_sync else "")
-        + ")",
-        flush=True,
-    )
     try:
-        server.wait()
-    except KeyboardInterrupt:  # top of the process: a clean stop is the handling
-        pass
+        _serve_until_interrupted(
+            server,
+            f"TPU dashboard on {server.url}/tpu ({mode}, device {app.device}"
+            + (f", background sync every {args.background_sync:g} s" if args.background_sync
+               else "")
+            + ")",
+        )
     finally:
-        server.close()
+        if elector is not None:
+            elector.stop()
+            elector.resign()
 
 
 if __name__ == "__main__":

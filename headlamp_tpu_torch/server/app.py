@@ -36,6 +36,9 @@ over stdlib ``http.server``:
   that bumps the generation, ``Last-Event-ID`` resume, heartbeats, and
   ``?class=debug`` for a stream that is shed first; it bypasses the
   gateway and holds no render worker;
+- ``GET /replicate/bus``      on a replication leader (``app.replication``
+  a ``replicate.BusPublisher``), the bus records newer than the
+  ``Last-Generation: g<N>`` cursor, as JSONL; it bypasses the gateway;
 - ``GET /healthz``            liveness and the runtime counters, as JSON;
 - ``GET /metricsz``           Prometheus text self-exposition, or
   OpenMetrics with exemplars when the Accept header asks for it;
@@ -103,9 +106,17 @@ each keyed, salted boundary whose bytes are cached for the paint's
 epoch and degraded flag is spliced, not re-rendered, and the bytes equal
 a plain paint's. ``fragments=False`` turns the cache off.
 
-Replication, workers, the incident timeline and the pages not listed
-above are not part of this host; ``/healthz`` leaves out the keys of the
-JAX host's that describe them.
+With ``app.replication`` set to a ``replicate.BusPublisher`` the host
+leads a read tier: every sync that bumps the generation, after the push
+differ, hands the same snapshot and peeks to the publisher (its own
+``replicate.publish`` span), and ``/replicate/bus`` serves the records. A
+``replicate.ReplicaApp`` is this host fed by those records instead of a
+cluster. An inbound ``traceparent`` header links a request's trace to the
+caller's trace in another process (``remote_parent``).
+
+Workers, the incident timeline and the pages not listed above are not
+part of this host; ``/healthz`` leaves out the keys of the JAX host's
+that describe them.
 """
 
 from __future__ import annotations
@@ -140,6 +151,7 @@ from ..obs.ledger import GenerationLedger
 from ..obs.metrics import OPENMETRICS_CONTENT_TYPE, TEXT_CONTENT_TYPE, negotiate_openmetrics
 from ..obs.metrics import registry as metrics_registry
 from ..obs.profiler import attribution, profiler
+from ..obs.propagate import parse_traceparent
 from ..obs.trace import annotate, current_trace_id, span, trace_request, trace_ring
 from ..pages.native import native_node_page, native_pod_page
 from ..push import PAGES as PUSH_PAGES
@@ -151,6 +163,7 @@ from ..push import (
     set_active_push,
     worker_identity,
 )
+from ..push.hub import parse_last_event_id
 from ..push.conditional import encode_body
 from ..registration import Registry, register_plugin
 from ..runtime.device_cache import warm_carries
@@ -362,6 +375,11 @@ class DashboardApp:
         #: active pipeline only feeds the connected-clients gauge.
         self.push = PushPipeline(monotonic=monotonic, fragments=self.fragments, ledger=self.ledger)
         set_active_push(self.push)
+        #: The read tier's hook: on a leader a ``replicate.BusPublisher``
+        #: (every generation the sync publishes goes to it, and
+        #: /replicate/bus serves it), on a replica its ``BusConsumer``.
+        #: None serves alone.
+        self.replication: Any = None
         # Every scrape the metrics refresher stores (background refits
         # and cold fills) lands in the history store.
         self._metrics_refresher.on_store = self._capture_metrics_store
@@ -556,7 +574,10 @@ class DashboardApp:
         the frames; a clean tick (the same generation) is skipped. The
         metrics and forecast it diffs are peeks, never a fetch or a fit,
         so the sync heartbeat grows no Prometheus probe chain. A differ
-        that raises is counted and named in /healthz ``runtime.push``."""
+        that raises is counted and named in /healthz ``runtime.push``.
+        On a replication leader the publisher gets the same snapshot and
+        peeks last; a publish that raises is counted and named in
+        /healthz ``runtime.replication``."""
         generation = 0
         if snap is not None:
             generation = next(
@@ -583,6 +604,13 @@ class DashboardApp:
                     snap, generation=generation,
                     metrics=self._peek_metrics, forecast=self._peek_forecast,
                 )
+            if self.replication is not None:
+                # Its own span: a tick's trace shows the encode's share.
+                with span("replicate.publish", generation=generation):
+                    self.replication.on_snapshot(
+                        snap, generation=generation,
+                        metrics=self._peek_metrics, forecast=self._peek_forecast,
+                    )
 
     def _background_live(self) -> bool:
         stop = self._background_stop
@@ -759,14 +787,22 @@ class DashboardApp:
         return "other"
 
     def handle(
-        self, path: str, accept: str | None = None, *, gateway_info: dict[str, Any] | None = None
+        self,
+        path: str,
+        accept: str | None = None,
+        *,
+        gateway_info: dict[str, Any] | None = None,
+        traceparent: str | None = None,
     ) -> tuple[int, str, str]:
         """(status, content_type, body) for a GET; for a 302 the content
         type slot holds the Location. ``accept`` is the Accept header;
         only /metricsz reads it. ``gateway_info`` is the gateway's
         admission story (priority class, queue wait, degraded flag),
-        recorded as the trace's ``gateway.admission`` span. Never raises:
-        an exception becomes a 500 page that names it.
+        recorded as the trace's ``gateway.admission`` span and the wide
+        event's ``gateway`` block. ``traceparent`` is the inbound header:
+        the caller's trace in another process becomes this trace's
+        ``remote_parent`` (this process still mints its own id). Never
+        raises: an exception becomes a 500 page that names it.
 
         Each request runs in its own transfer batch, which counts the
         device-to-host copies it waits for, and its own trace, which
@@ -783,9 +819,11 @@ class DashboardApp:
         status = 500
         recorded = route_label not in _RING_EXCLUDED
         counters_before = self._runtime_counters() if recorded else None
-        with trace_request(path, enabled=recorded, wall=self._clock) as trace, attribution(
-            route_label
-        ):
+        remote = parse_traceparent(traceparent)
+        with trace_request(
+            path, enabled=recorded, wall=self._clock,
+            remote_parent=remote.trace_id if remote is not None else None,
+        ) as trace, attribution(route_label):
             try:
                 if gateway_info:
                     # A zero-length marker: the wait already happened
@@ -826,9 +864,23 @@ class DashboardApp:
                             trace=trace_dict, violations=violations,
                             counters_before=counters_before,
                             counters_after=self._runtime_counters(),
+                            gateway=gateway_info,
+                            replication=self._replication_info(),
                         ),
                         pinned=bool(violations) or status >= 500,
                     )
+
+    def _replication_info(self) -> dict[str, Any] | None:
+        """The wide event's replication block: role, applied generation
+        and bus cursor (the triage keys of ``runtime.replication``), or
+        None when the host serves alone."""
+        replication = self.replication
+        if replication is None:
+            return None
+        block = replication.snapshot()
+        return {
+            k: block[k] for k in ("role", "cursor", "last_generation", "applied") if k in block
+        }
 
     def _runtime_counters(self) -> dict[str, float]:
         """The flat, dotted monotone counters a wide event reports the
@@ -853,6 +905,8 @@ class DashboardApp:
         if pool is not None:
             blocks.append(("transport", pool.counters()))
         blocks.append(("push", self.push.counters()))
+        if self.replication is not None:
+            blocks.append(("replicate", self.replication.counters()))
         for prefix, counters in blocks:
             for key, value in counters.items():
                 out[f"{prefix}.{key}"] = value
@@ -1107,9 +1161,10 @@ class DashboardApp:
         ``HEALTH_FAILURE_THRESHOLD`` failing syncs in a row, while the
         background loop's snapshot is older than its wedged limit, while
         the last background warm failed, once a capture of the program
-        registry failed, while the SLO engine's last budget fit failed, or
-        while the push differ's last generation failed. Ages run on the
-        injected monotonic clock."""
+        registry failed, while the SLO engine's last budget fit failed,
+        while the push differ's last generation failed, or while the last
+        replication publish (leader) or apply (replica) failed. Ages run
+        on the injected monotonic clock."""
         snap = self._last_snapshot
         failures = self._sync_failures
         ok = (
@@ -1118,6 +1173,7 @@ class DashboardApp:
             and aot.registry().compile_errors == 0
             and slo_mod.engine().budget_fit_error is None
             and not self.push.failing
+            and not (self.replication is not None and self.replication.failing)
         )
         background = self._background_live()
         health: dict[str, Any] = {"ok": ok, "loading": snap is None or snap.loading}
@@ -1175,7 +1231,8 @@ class DashboardApp:
         store, the SLO states with the last budget fit's error, the
         profiler's counters, the push pipeline (its differ and SSE hub),
         and the device with its kernel; with the fragment cache on its
-        entries, bytes and hit rate, with a gateway its admission
+        entries, bytes and hit rate, with replication the leader's
+        publisher or the replica's consumer, with a gateway its admission
         counters and queues, with a pooled transport its connection
         pool."""
         with self._lock:
@@ -1217,6 +1274,8 @@ class DashboardApp:
         }
         if self.fragments is not None:
             out["render"] = self.fragments.snapshot()
+        if self.replication is not None:
+            out["replication"] = self.replication.snapshot()
         if self.gateway is not None:
             out["gateway"] = self.gateway.snapshot()
         pool = pool_of(self._transport)
@@ -1398,7 +1457,10 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
     gzipped when the client accepts it. ``/events`` never reaches the
     gateway: its thread subscribes to the push hub and writes each event
     as it comes (`app.py:1858-1892`) until a ``bye`` or the client
-    leaves. Start the process's program registry capturing its startup
+    leaves. ``/replicate/bus`` never reaches it either: a leader's backlog
+    copy is answered on the request thread (`app.py:1819-1852`), a host
+    without a publisher answers 404. Start the process's program registry
+    capturing its startup
     set on the app's device on a background thread (`app.py:1745-1755`;
     a no-op once started), and the sampling profiler's thread
     (`app.py:1741`). Requests that arrive
@@ -1417,10 +1479,16 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
                 # dashboards must not hold render capacity.
                 self._serve_events()
                 return
+            if urlparse(self.path).path.rstrip("/") == "/replicate/bus":
+                # A backlog copy, microseconds: replica pulls never queue
+                # behind renders.
+                self._serve_bus()
+                return
             response = gateway.handle(
                 self.path,
                 accept=self.headers.get("Accept"),
                 if_none_match=self.headers.get("If-None-Match"),
+                traceparent=self.headers.get("traceparent"),
             )
             status, content_type, body = response[:3]
             if status == 302:
@@ -1457,6 +1525,34 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
                 self.send_header(name, value)
             self.end_headers()
             self.wfile.write(data)
+
+        def _serve_bus(self) -> None:
+            replication = app.replication
+            if replication is None or not hasattr(replication, "payload_after"):
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            cursor = parse_last_event_id(self.headers.get("Last-Generation"))
+            # The polling replica's traceparent names its poll trace; this
+            # serve joins it. Ringed only when records shipped: a 1 Hz
+            # stream of empty polls would rotate every page trace out.
+            remote = parse_traceparent(self.headers.get("traceparent"))
+            with trace_request(
+                "/replicate/bus", wall=app._clock,
+                remote_parent=remote.trace_id if remote is not None else None,
+            ) as trace:
+                with span("replicate.serve", cursor=cursor or 0):
+                    payload = replication.payload_after(cursor).encode()
+                if trace is not None and payload.count(b"\n") > 1:
+                    trace.finish(route="/replicate/bus", status=200, device_gets=0)
+                    trace_ring.record(trace.to_dict())
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("X-Headlamp-Generation", str(replication.last_generation))
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
 
         def _serve_events(self) -> None:
             sub = app.open_event_stream(self.path, last_event_id=self.headers.get("Last-Event-ID"))

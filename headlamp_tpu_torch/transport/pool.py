@@ -18,8 +18,9 @@ per Kubernetes or Prometheus call pays one more round trip each time:
   round-trip time than its connect costs. Without a pool
   (``MockTransport``) it is a fixed-width map.
 
-The JAX pool also writes a ``traceparent`` header; trace propagation is
-not part of this package yet.
+:meth:`ConnectionPool.request` is the one place in the port that writes
+the outbound ``traceparent`` header (``obs/propagate.py``), so a call made
+inside a trace joins the trace its peer opens.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from urllib.parse import urlsplit
 
 from ..obs import slo as slo_mod
 from ..obs.metrics import registry as _metrics_registry
+from ..obs.propagate import TRACEPARENT_HEADER, current_traceparent, record_injected
 from ..obs.trace import span as _span
 
 #: Concurrent checked-out connections per host: one full-width fan-out
@@ -385,7 +387,8 @@ class ConnectionPool:
         live response; the caller closes it (a context manager). A
         request that fails with a peer-closed symptom on a reused socket
         is retried once on a fresh connection; a failure on a fresh one
-        propagates."""
+        propagates. Inside a trace it carries the trace's
+        ``traceparent``, unless the caller set one."""
         parts = urlsplit(url)
         scheme = parts.scheme or "http"
         host = parts.hostname or ""
@@ -394,7 +397,14 @@ class ConnectionPool:
         path = parts.path or "/"
         if parts.query:
             path += "?" + parts.query
+        # The one write of the traceparent header (TRC001), before the
+        # attempt loop: a stale retry is the same logical request.
         send_headers = dict(headers) if headers else {}
+        if TRACEPARENT_HEADER not in send_headers:
+            traceparent = current_traceparent()
+            if traceparent is not None:
+                send_headers[TRACEPARENT_HEADER] = traceparent
+                record_injected()
         slot = self._slot(key)
         for attempt in (0, 1):
             conn, reused = self._checkout(key, timeout_s, context)

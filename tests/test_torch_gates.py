@@ -13,7 +13,10 @@ scopes name only the JAX package, and ``tools/`` stays as it is):
   a page renderer;
 - exactly-once SLO observation in the gateway (``OBS001``): no outcome
   path observes the request-duration histogram twice, and the shed,
-  304 and 5xx paths never do.
+  304 and 5xx paths never do;
+- one ``traceparent`` writer (``TRC001``): only ``transport/pool.py``
+  builds the outbound header; the host, the gateway and the bus serve
+  only read it.
 
 Each finds nothing in the port; a scratch tree with one violation shows
 each scoped rule is live.
@@ -27,6 +30,7 @@ from tools.analysis.engine import Engine
 from tools.analysis.rules.direct_render import DirectRenderRule
 from tools.analysis.rules.raw_urlopen import RawUrlopenRule
 from tools.analysis.rules.slo_observation import SloObservationRule
+from tools.analysis.rules.trace_propagation import TracePropagationRule
 from tools.analysis.rules.wall_clock import WallClockRule
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,4 +131,30 @@ def test_the_ports_gateway_observes_each_request_at_most_once(tmp_path):
     rule.top_dirs, rule.scope_dirs = ("pkg",), ("pkg/gateway/",)
     assert _run(rule, str(tmp_path))[1] == [
         ("OBS001", "pkg/gateway/bad.py", 9), ("OBS001", "pkg/gateway/bad.py", 11)
+    ]
+
+
+def test_only_the_ports_pool_writes_the_traceparent_header(tmp_path):
+    rule = TracePropagationRule()
+    rule.top_dirs = ("headlamp_tpu_torch",)
+    rule.exempt_files = ("headlamp_tpu_torch/transport/pool.py",)
+    result, found = _run(rule)
+    assert found == [], "\n".join(str(d) for d in result.diagnostics)
+    for module in ("server/app.py", "gateway/gateway.py", "obs/propagate.py",
+                   "replicate/replica.py"):
+        assert f"headlamp_tpu_torch/{module}" in result.parse_counts, module
+    assert "headlamp_tpu_torch/transport/pool.py" not in result.parse_counts
+    pkg = tmp_path / "pkg"
+    (pkg / "transport").mkdir(parents=True)
+    (pkg / "transport" / "pool.py").write_text("h = {}\nh['traceparent'] = 'x'\n")
+    (pkg / "relay.py").write_text(
+        "def forward(headers, value):\n"
+        "    out = {'traceparent': value}\n"
+        "    headers['traceparent'] = value\n"
+        "    headers.setdefault('traceparent', value)\n"
+        "    return headers.get('traceparent'), out\n"
+    )
+    rule.top_dirs, rule.exempt_files = ("pkg",), ("pkg/transport/pool.py",)
+    assert sorted(_run(rule, str(tmp_path))[1]) == [
+        ("TRC001", "pkg/relay.py", 2), ("TRC001", "pkg/relay.py", 3), ("TRC001", "pkg/relay.py", 4),
     ]
