@@ -51,8 +51,12 @@ and two read replicas on the card painting its bytes from the records
 traces linked both ways through ``traceparent``, a failover drill on
 injected clocks (stale-honest paints, fencing, convergence), the
 ``--replica`` entry point as a process of its own, and the bus's costs
-at 16384 nodes. It exits non-zero at the first failure, and without
-CUDA or without the package beside it.
+at 16384 nodes. Then multi-process serving: a shared-memory segment at
+16384 nodes feeding two workers on the card, which paint the leader's
+bytes and upload the segment's columns with no encode, beside a bus
+replica that encodes; then ``--workers 2`` and ``--workers 1`` as
+processes, with their saturation curves. It exits non-zero at the first
+failure, and without CUDA or without the package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -213,6 +217,13 @@ PUSH_LAUNCHES = 3
 #: The replication step's launches: the leader's one refit (its forecast
 #: is what the records ship); the replicas paint it and fit nothing.
 REPLICATION_LAUNCHES = 1
+#: The workers step: the in-process fleet (``fleet_viewport``), the
+#: supervisor's worker counts and its saturation curve's clients, and its
+#: launches: the leader's one refit; the workers fit nothing.
+WORKERS_NODES = 16384
+WORKERS_COUNTS = (2, 1)
+WORKERS_CONCURRENCY = (32,)
+WORKERS_LAUNCHES = 1
 #: The two measured durations a metrics page prints (masked to compare).
 PAGE_TIMINGS = re.compile(r"(history in|took) [0-9.e+-]+ ms")
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
@@ -2187,14 +2198,15 @@ def _keepalive_get(port: int, path: str, conn: Any = None,
             conn.close()
 
 
-def _saturation_curve(port: int) -> dict[str, float]:
-    """bench.py's client loop (``bench.py:1255-1310``) on /tpu/metrics: c
+def _saturation_curve(port: int, concurrency: tuple[int, ...] = GATEWAY_CONCURRENCY,
+                      path: str = "/tpu/metrics") -> dict[str, float]:
+    """bench.py's client loop (``bench.py:1255-1310``) on ``path``: c
     clients released by a barrier, each on its own keep-alive connection,
     unique query strings so coalescing never hides the pool's queueing."""
     import threading
 
     out: dict[str, float] = {}
-    for c in GATEWAY_CONCURRENCY:
+    for c in concurrency:
         lat: list[float] = []
         statuses: list[int] = []
         lock = threading.Lock()
@@ -2203,7 +2215,7 @@ def _saturation_curve(port: int) -> dict[str, float]:
         def client(worker: int, c: int = c) -> None:
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
             barrier.wait()
-            mine = [_keepalive_get(port, f"/tpu/metrics?c={c}&w={worker}&i={i}", conn)
+            mine = [_keepalive_get(port, f"{path}?c={c}&w={worker}&i={i}", conn)
                     for i in range(GATEWAY_REQUESTS)]
             conn.close()
             with lock:
@@ -3404,6 +3416,375 @@ def re_cursor(body: str) -> str:
     return found.group(1)
 
 
+def _card_memory_used_mib() -> int:
+    """The card's memory in use, all processes, by ``nvidia-smi``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits",
+                          "--id=0"], capture_output=True, text=True, timeout=30, check=True)
+    return int(out.stdout.strip())
+
+
+def _newest_trace(route: str) -> dict[str, Any]:
+    from headlamp_tpu_torch.obs.trace import trace_ring
+
+    found = next((t for t in trace_ring.snapshot() if t["route"] == route), None)  # newest first
+    check(found is not None, f"no {route} trace in the ring")
+    return found
+
+
+def _span_names(spans: list[dict[str, Any]]) -> set[str]:
+    return {s["name"] for s in spans} | {n for s in spans for n in _span_names(s["children"])}
+
+
+def workers_phase(torch: Any, smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 21: multi-process serving on the card. (a) In process at
+    ``fleet_viewport(16384)``: a leader publishing through a
+    ``SegmentBusPublisher`` into a segment in /dev/shm, two ``ReplicaApp``
+    workers on the card fed by ``ShmConsumer``, and a bus-fed replica
+    (step 20's path) beside them. The workers' eight pages, ETags, 304s and
+    a flip's ``/events`` frame equal the leader's; each apply seeds one
+    provider's columns; a worker's first ``/tpu`` after an apply opens no
+    ``device_cache.upload`` span and uploads nothing. Printed: the publish
+    (bus encode, second ``encode_fleet`` and map write), each worker's
+    read, apply and seed, and the first ``/tpu`` and ``/tpu/fleet`` of a
+    worker beside the bus replica's. (b) As processes: ``python -m
+    headlamp_tpu_torch.server --demo large --workers N`` for N = 2, then 1:
+    both workers live on the card, one ETag over six GETs, each worker's
+    pid, card memory and registry, and the saturation curve at 32 clients.
+    Nothing about scaling is asserted. Returns the launches (this process
+    only: the supervisors' fits are theirs) and the numbers."""
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+
+    LAUNCHES.reset()
+    segments: dict[str, int] = {}
+
+    def segment(name: str, want: int) -> None:
+        torch.cuda.synchronize()
+        n = LAUNCHES.n - sum(segments.values())
+        segments[name] = n
+        check(n == want, f"step 21's {name} launched forecast_mlp_forward {n} times, not {want}")
+
+    t_step = time.perf_counter()
+    out = _workers_in_process(torch, smi, segment)
+    out["processes"] = _workers_as_processes(smi)
+    segment("processes", 0)
+    launches = LAUNCHES.n
+    check(launches == sum(segments.values()) == WORKERS_LAUNCHES,
+          f"step 21 launched {launches} ({segments}), not {WORKERS_LAUNCHES}")
+    out["seconds"] = time.perf_counter() - t_step
+    print(f"workers: step 21 launched forecast_mlp_forward {launches} times, by segment "
+          f"{json.dumps(segments)}; took {out['seconds']:.1f} s")
+    return launches, out
+
+
+def _workers_in_process(torch: Any, smi: str, segment: Callable[[str, int], None]
+                        ) -> dict[str, Any]:
+    """Step 21a; see :func:`workers_phase`."""
+    import tempfile
+
+    from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.obs import slo
+    from headlamp_tpu_torch.obs.trace import trace_request
+    from headlamp_tpu_torch.replicate import BusConsumer, ReplicaApp, pool_fetch
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp
+    from headlamp_tpu_torch.server.demo import add_demo_prometheus
+    from headlamp_tpu_torch.transport import ConnectionPool
+    from headlamp_tpu_torch.workers import SegmentBusPublisher, ShmConsumer, SnapshotSegment
+
+    n = WORKERS_NODES
+    warm_carries.invalidate()
+    engine = slo.SLOEngine()
+    wall = lambda: FIXED_CLOCK  # noqa: E731
+    mono = lambda: 30000.0  # noqa: E731
+    fleet = fleet_viewport(n)
+    transport = fleet_transport(fleet)
+    add_demo_prometheus(transport, fleet)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir()
+    seg = SnapshotSegment(os.path.join(shm, f"headlamp-torch-smoke-{os.getpid()}.seg"))
+    leader = DashboardApp(transport, device="cuda", clock=wall, monotonic=mono,
+                          min_sync_interval_s=3600.0)
+    leader.history.capture_timings = False
+    pub = SegmentBusPublisher(seg, monotonic=mono, wall=wall, ledger=leader.ledger)
+    leader.replication = pub
+    leader.ensure_gateway(engine=lambda: engine)
+    pool = ConnectionPool()
+    apps: list[Any] = []
+    servers: list[Any] = []
+    out: dict[str, Any] = {"nodes": n, "segment_path": seg.path}
+
+    def replica() -> Any:
+        rep = ReplicaApp(device="cuda", clock=wall, monotonic=mono)
+        rep.history.capture_timings = False
+        rep.ensure_gateway(engine=lambda: engine)
+        apps.append(rep)
+        return rep
+
+    def port_of(server: Any) -> int:
+        return int(server.url.rsplit(":", 1)[1])
+
+    publishes: list[dict[str, float]] = []
+
+    def publish() -> int:
+        """One inline sync on the leader, traced: without watch every sync
+        re-lists, so each is a new generation, published to the bus and
+        mirrored into the segment."""
+        leader._last_sync = float("-inf")
+        with trace_request("/smoke/sync", wall=wall) as trace:
+            leader._synced_snapshot()
+        totals = span_totals(trace.to_dict())
+        publishes.append({"publish_ms": totals["replicate.publish"],
+                          "segment_ms": totals["workers.segment"],
+                          "push_diff_ms": totals["push.diff"]})
+        check(pub.segment_publishes == len(publishes) and pub.segment_failures == 0,
+              f"the segment mirror: {pub.snapshot()}")
+        return leader.snapshot_generation()
+
+    polls: list[list[dict[str, float]]] = []
+
+    def poll_workers(gen: int) -> None:
+        rows = []
+        for i, (rep, consumer) in enumerate(zip(workers, consumers)):
+            seeds = rep._ctx.fleet_cache.seeds
+            check(consumer.poll_once() == 1 and rep.snapshot_generation() == gen,
+                  f"worker {i} did not apply g{gen} off the segment: {consumer.snapshot()}")
+            totals = span_totals(_newest_trace("/workers/poll"))
+            providers = len(rep._last_snapshot.providers)
+            check(rep._ctx.fleet_cache.seeds - seeds == providers == 1
+                  and consumer.seed_errors == 0 and consumer.applied_fallback == 0,
+                  f"worker {i} seeded {rep._ctx.fleet_cache.seeds - seeds} of {providers}")
+            rows.append({"read_ms": totals["workers.read"], "apply_ms": totals["replicate.apply"],
+                         "seed_ms": totals["device_cache.seed"]})
+        polls.append(rows)
+
+    try:
+        lserver = leader.serve("127.0.0.1", 0)
+        servers.append(lserver)
+        # Process-wide state the first paints below must not pay for: the
+        # registry's startup set (ready since step 9 in a whole run).
+        check(aot.registry().wait_ready(600.0), "the program registry never became ready")
+        workers = [replica() for _ in range(2)]
+        consumers = [ShmConsumer(rep, seg.path) for rep in workers]
+        bus_rep = replica()
+        bus_consumer = BusConsumer(bus_rep, pool_fetch(lserver.url, pool=pool, timeout_s=120.0))
+        servers += [rep.serve("127.0.0.1", 0) for rep in workers + [bus_rep]]
+        lport, w0port, w1port, bport = (port_of(s) for s in servers)
+
+        poll_workers(publish())
+        status = _keepalive_get(lport, "/tpu/metrics")[0]
+        check(status == 200, f"GET /tpu/metrics on the leader: {status}")
+        segment("leader refit", 1)
+        gen = publish()  # this generation ships the forecast
+        poll_workers(gen)
+        t0 = time.perf_counter()
+        check(bus_consumer.poll_once() == 2 and bus_rep.snapshot_generation() == gen,
+              "the bus replica did not catch up")
+        bus_pull_apply_ms = (time.perf_counter() - t0) * 1e3
+
+        # The leader paints first, so the rollup's calibration at this size
+        # is paid before the paints compared below.
+        for path in ("/tpu", "/tpu/fleet"):
+            check(_keepalive_get(lport, path)[0] == 200, f"GET {path} on the leader")
+        # First paints after the apply, a worker on each side of the bus
+        # replica: the workers' columns are seeded, the replica encodes.
+        first: dict[str, dict[str, list[float]]] = {}
+        first_spans: dict[str, dict[str, float]] = {}
+        for label, rep, port in (("w0", workers[0], w0port), ("bus_replica", bus_rep, bport),
+                                 ("w1", workers[1], w1port)):
+            uploads = rep._ctx.fleet_cache.uploads
+            first[label] = {}
+            for path in ("/tpu", "/tpu/fleet", "/tpu", "/tpu/fleet"):
+                status, _, _, ms = _keepalive_get(port, path)
+                check(status == 200, f"{label} GET {path} at {n} nodes: {status}")
+                first[label].setdefault(path, []).append(ms)
+                if len(first[label][path]) == 1 and path == "/tpu":
+                    trace = _newest_trace("/tpu")
+                    first_spans[label] = {k: v for k, v in span_totals(trace).items() if k in (
+                        "sync.snapshot", "page.component", "analytics.rollup",
+                        "device_cache.upload", "render.html")}
+                    names = _span_names(trace["spans"])
+                    check(label == "bus_replica" or "device_cache.upload" not in names,
+                          f"{label}'s first /tpu after an apply: spans {sorted(names)}")
+            paid = rep._ctx.fleet_cache.uploads - uploads
+            check(paid == (1 if label == "bus_replica" else 0),
+                  f"{label}'s first paints uploaded {paid} times")
+        out.update(publishes=publishes, worker_polls=polls, bus_pull_apply_ms=bus_pull_apply_ms,
+                   first_paint_ms=first, first_tpu_spans_ms=first_spans)
+        for i, row in enumerate(publishes):
+            print(f"workers: {n} nodes, publish {i + 1}: replicate.publish {row['publish_ms']:.1f} "
+                  f"ms, of which workers.segment (the second encode_fleet and the map write) "
+                  f"{row['segment_ms']:.1f}, bus encode {row['publish_ms'] - row['segment_ms']:.1f}"
+                  f"; push.diff {row['push_diff_ms']:.1f}")
+        for i, rows in enumerate(polls):
+            print(f"workers: {n} nodes, apply {i + 1} off the segment (read, apply, seed ms): "
+                  + "; ".join(f"w{j} {r['read_ms']:.1f}, {r['apply_ms']:.1f}, {r['seed_ms']:.1f}"
+                              for j, r in enumerate(rows)))
+        for label, paints in first.items():
+            kind = ("bus replica (1 upload; its cursor-0 pull and two applies "
+                    f"{bus_pull_apply_ms:.1f} ms)" if label == "bus_replica"
+                    else f"worker {label} (0 uploads, no device_cache.upload span)")
+            print(f"workers: {n} nodes, after the apply, {kind}: /tpu first "
+                  f"{paints['/tpu'][0]:.1f} ms then {paints['/tpu'][1]:.1f}, /tpu/fleet first "
+                  f"{paints['/tpu/fleet'][0]:.1f} then {paints['/tpu/fleet'][1]:.1f}; the first "
+                  f"/tpu's spans " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                               first_spans[label].items()) + f"; on {smi}")
+
+        # Identity, page by page, over the sockets.
+        pages = ("/tpu", "/tpu/nodes", "/tpu/pods", "/tpu/topology", "/tpu/metrics",
+                 "/tpu/deviceplugins", "/tpu/fleet", "/tpu/trends")
+        for path in pages:
+            lead = _keepalive_get(lport, path)
+            check(lead[0] == 200, f"GET {path} on the leader: {lead[0]}")
+            etag = lead[1].get("ETag")
+            for i, port in enumerate((w0port, w1port)):
+                got = _keepalive_get(port, path)
+                check(got[0] == 200 and got[2] == lead[2] and got[1].get("ETag") == etag,
+                      f"worker {i} {path} differs from the leader's ({got[0]})")
+                check(_keepalive_get(port, path, headers={"If-None-Match": etag})[0] == 304,
+                      f"worker {i} {path}: the leader's ETag is no 304")
+        check("Utilization Forecast" in _keepalive_get(w0port, "/tpu/metrics")[2].decode(),
+              "the worker's metrics page has no forecast")
+
+        # A fleet flip: the same /events frame on the leader and both workers.
+        clients = [_SseClient(port, "/events") for port in (lport, w0port, w1port)]
+        try:
+            node = _flip_ready(leader, transport, 7)
+            poll_workers(publish())
+            frames = [c.next_event() for c in clients]
+        finally:
+            for c in clients:
+                c.close()
+        check(all(f == frames[0] for f in frames) and frames[0]["event"] == "delta"
+              and node in json.dumps(frames[0]["data"]),
+              f"/events on the leader and the workers: {frames}")
+        segment("workers", 0)
+        print(f"workers: g{gen} at {n} nodes: 2 segment-fed workers' {', '.join(pages)} equal "
+              f"the leader's bytes, ETags equal, the leader's ETag a 304 on each; a Ready flip "
+              f"of {node} is one frame on all three ({frames[0]['id']}, {frames[0]['bytes']} "
+              f"bytes); the workers launched 0")
+    finally:
+        closed = set()
+        for server in servers:
+            server.close()  # closes its app too
+            closed.add(id(server.app))
+        for app in [leader] + apps:
+            if id(app) not in closed:
+                app.close()
+        pool.close()
+        seg.close()
+        seg.unlink()
+    return out
+
+
+def _workers_as_processes(smi: str) -> dict[str, Any]:
+    """Step 21b; see :func:`workers_phase`. Each supervisor is its own
+    session, stopped with SIGINT and joined (a kill of its process group
+    if it outlives 120 s, which fails the step)."""
+    import tempfile
+
+    out: dict[str, Any] = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for n in WORKERS_COUNTS:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        log = tempfile.TemporaryFile()
+        used_before = _card_memory_used_mib()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "headlamp_tpu_torch.server", "--demo", "large", "--workers",
+             str(n), "--port", str(port)],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+        )
+        row: dict[str, Any] = {}
+        try:
+            ready: dict[str, tuple[dict[str, Any], float]] = {}
+            health: dict[str, Any] = {}
+            deadline = time.monotonic() + 240.0
+            while True:
+                if proc.poll() is not None:
+                    log.seek(0)
+                    raise SmokeFailure(f"--workers {n} exited {proc.returncode}: "
+                                       f"{log.read()[-3000:].decode(errors='replace')}")
+                check(time.monotonic() < deadline, f"--workers {n} never became ready: {health}")
+                try:
+                    _, _, body, _ = _keepalive_get(port, "/healthz")
+                except OSError:
+                    time.sleep(0.2)
+                    continue
+                health = json.loads(body)
+                runtime = health["runtime"]
+                board = runtime.get("workers") or {}
+                repl = runtime.get("replication") or {}
+                if (board.get("live") == n and repl.get("role") == "worker"
+                        and repl.get("applied", 0) >= 1 and runtime["aot"]["state"] == "ready"):
+                    ready.setdefault(board["self"], (health, time.perf_counter() - t0))
+                gens = {r["generation"] for r in board.get("workers", [])}
+                if len(ready) == n and len(gens) == 1 and 0 not in gens:
+                    break
+                time.sleep(0.2)
+            etags, generations = set(), set()
+            for _ in range(6):
+                status, headers, _, _ = _keepalive_get(port, "/tpu")
+                check(status == 200, f"--workers {n} GET /tpu: {status}")
+                etags.add(headers.get("ETag"))
+                generations.add(headers.get("X-Headlamp-Generation"))
+            check(len(etags) == 1 and len(generations) == 1,
+                  f"--workers {n}: six /tpu GETs carried {etags}, generations {generations}")
+            # Inside a container nvidia-smi's per-process query can come
+            # back empty: the card's total and each allocator's share
+            # stand in.
+            used_delta = _card_memory_used_mib() - used_before
+            workers = []
+            for label in sorted(ready):
+                h, ready_s = ready[label]
+                me = next(r for r in h["runtime"]["workers"]["workers"]
+                          if f"w{r['worker']}" == label)
+                device = h["runtime"]["device"]
+                check(h["ok"] is True and device["torch_device"].startswith("cuda")
+                      and h["runtime"]["replication"]["seed_errors"] == 0
+                      and h["runtime"]["aot"]["compile_errors"] == 0,
+                      f"--workers {n} {label}: ok {h['ok']}, {device}")
+                workers.append({
+                    "worker": label, "pid": me["pid"], "ready_s": ready_s,
+                    "registry_capture_ms": h["runtime"]["aot"]["compile_ms_total"],
+                    "reserved_mib": device["memory_reserved_bytes"] / 2**20,
+                    "seeds": h["runtime"]["replication"]["seeds"],
+                })
+            for w in workers:
+                print(f"workers: --workers {n} {w['worker']} pid {w['pid']}: ready (registry "
+                      f"captured in {w['registry_capture_ms']} ms, a record applied and seeded) "
+                      f"{w['ready_s']:.2f} s after the supervisor started; {w['reserved_mib']:.1f} MiB "
+                      f"reserved by its allocator on the card")
+            print(f"workers: --workers {n}: the supervisor (pid {proc.pid}) and its workers "
+                  f"took {used_delta} MiB of the card (nvidia-smi memory.used, before and "
+                  f"after); six /tpu GETs, one ETag {etags.pop()}")
+            for i in range(4 * n):
+                check(_keepalive_get(port, f"/tpu?warm={i}")[0] == 200, "a warm-up GET")
+            curve = _saturation_curve(port, WORKERS_CONCURRENCY, path="/tpu")
+            row.update(workers=workers, curve=curve, card_memory_mib=used_delta)
+            print(f"workers: --workers {n} at {WORKERS_CONCURRENCY[-1]} clients on /tpu: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in curve.items()) + f"; on {smi}")
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            log.seek(0)
+            tail = log.read()[-3000:].decode(errors="replace")
+            log.close()
+        check(proc.returncode == 0, f"--workers {n} exited {proc.returncode}: {tail}")
+        out[f"w{n}"] = row
+    c = WORKERS_CONCURRENCY[-1]
+    ratio = out["w2"]["curve"][f"agg_rps_c{c}"] / out["w1"]["curve"][f"agg_rps_c{c}"]
+    out["scaling_2v1"] = ratio
+    print(f"workers: aggregate rps at {c} clients, --workers 2 over --workers 1: {ratio:.3f} "
+          f"(recorded, not asserted: without MPS the workers' kernels time-slice the card)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3703,6 +4084,11 @@ def main() -> int:
     #     card, the failover drill, the --replica entry point, and the
     #     bus's costs at 16384 nodes.
     replication_launches, _replication_row = replication_phase(torch, smi)
+
+    # 21. Multi-process serving: the shared-memory segment feeding two
+    #     workers on the card at 16384 nodes beside a bus replica, then
+    #     --workers 2 and --workers 1 as processes with their curves.
+    workers_launches, _workers_row = workers_phase(torch, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -3731,7 +4117,8 @@ def main() -> int:
         "launches": (page_launches + scale_launches + one_launches + serve_launches
                      + cluster_launches + viewport_launches + live_launches + registry_launches
                      + mesh_launches + replay_launches + telemetry_launches
-                     + gateway_launches + push_launches + replication_launches),
+                     + gateway_launches + push_launches + replication_launches
+                     + workers_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -3745,7 +4132,8 @@ def main() -> int:
                              "slo_self_forecast": telemetry_launches,
                              "gateway_and_transport": gateway_launches,
                              "push_and_fragments": push_launches,
-                             "replication": replication_launches},
+                             "replication": replication_launches,
+                             "workers": workers_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

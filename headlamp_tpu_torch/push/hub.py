@@ -110,10 +110,9 @@ class Subscription:
 
 
 #: Which serving process this is, as a short label ("w0", "w1", …), set
-#: once at a worker process's entry; None in single-process serving
-#: (the port has no worker processes yet). Process-global on purpose: a
-#: worker process is one identity, and the SSE handler and the push
-#: snapshot both stamp it.
+#: once at a worker process's entry (``workers/worker.py``); None in
+#: single-process serving. Process-global on purpose: a worker process is
+#: one identity, and the SSE handler and the push snapshot both stamp it.
 _WORKER_IDENTITY: str | None = None
 
 

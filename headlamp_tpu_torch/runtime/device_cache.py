@@ -1,7 +1,8 @@
 """Device-resident fleet columns and process-scoped warm-start carries.
 
 The port's counterpart of ``headlamp_tpu/runtime/device_cache.py``'s
-``DeviceFleetCache`` (`:68-231`), ``RollupResultCache`` (`:234-280`),
+``DeviceFleetCache`` (`:68-231`, its ``seed`` at `:155-182`),
+``RollupResultCache`` (`:234-280`),
 ``WarmCarryCache`` and ``warm_carries``. The fleet columns and the
 parked rollup results belong to each data context, not to the process.
 """
@@ -29,9 +30,11 @@ def _to_device(fleet: FleetArrays, device: torch.device) -> FleetArrays:
     Scalars (n_nodes/n_pods) and node_names stay host-side. The calling
     thread's stream is synchronized before the twin is returned: an
     entry is published complete, so a request thread reading it on its
-    own stream never races the copy (JAX's ``block_until_ready``)."""
+    own stream never races the copy (JAX's ``block_until_ready``). A
+    read-only column (a view over ``bytes``) is copied on the host first:
+    ``torch.from_numpy`` would alias memory it may not write."""
     replacements = {
-        field.name: torch.from_numpy(value).to(device)
+        field.name: torch.from_numpy(value if value.flags.writeable else value.copy()).to(device)
         for field in dataclasses.fields(fleet)
         if isinstance(value := getattr(fleet, field.name), np.ndarray)
     }
@@ -59,7 +62,8 @@ class DeviceFleetCache:
     every warm hit behind an upload. An upload publishes its entry only
     over an older version (or none): a request thread finishing the
     upload of a snapshot it read before the background loop warmed a
-    newer one must not replace the newer entry. Failures propagate."""
+    newer one must not replace the newer entry. :meth:`seed` installs
+    columns that arrived already encoded. Failures propagate."""
 
     def __init__(self, device: torch.device | str = "cpu") -> None:
         self.device = torch.device(device)
@@ -69,6 +73,9 @@ class DeviceFleetCache:
         self.misses = 0
         #: Encodes copied to the device (versioned misses and warms).
         self.uploads = 0
+        #: Columns that arrived encoded (a worker's segment) and were
+        #: copied to the device with no encode.
+        self.seeds = 0
         # Process-wide instruments (get-or-create) for /metricsz; the
         # ints above are this cache's own, for /healthz and tests.
         self._hits_total = _metrics_registry.counter(
@@ -131,6 +138,25 @@ class DeviceFleetCache:
         self._upload(view)
         return True
 
+    def seed(self, provider: str, version: int, fleet: FleetArrays) -> None:
+        """Copy columns that arrived already encoded to this cache's device
+        and install them for ``(provider, version)``, with no encode: a
+        worker that read a published segment holds the packed columns, so
+        the first render of that generation must not pay the per-node
+        encode loop. Installed over an older version (or none), or over an
+        equal one that a racing request encoded from the same snapshot; a
+        newer entry stays. An upload that raises propagates and installs
+        nothing: host columns never stand in for device ones (JAX installs
+        its host arrays when the upload fails, `device_cache.py:173-177`)."""
+        version = int(version)
+        with _span("device_cache.seed", nodes=int(fleet.n_nodes)):
+            on_device = _to_device(fleet, self.device)
+        with self._lock:
+            self.seeds += 1
+            held = self._entries.get(provider)
+            if held is None or held[0] <= version:
+                self._entries[provider] = (version, on_device)
+
     def invalidate(self) -> None:
         """Drop every entry (frees the device columns)."""
         with self._lock:
@@ -149,6 +175,7 @@ class DeviceFleetCache:
                 "hits": self.hits,
                 "misses": self.misses,
                 "uploads": self.uploads,
+                "seeds": self.seeds,
                 "hit_rate": round(self.hits / total, 4) if total else 0.0,
                 "entries": entries,
                 "device": str(self.device),

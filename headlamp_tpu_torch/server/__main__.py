@@ -7,14 +7,20 @@ Modes:
   ``kubectl proxy``), over a pooled keep-alive ``KubeTransport``;
 - ``--in-cluster`` — inside a pod, with the service account's token.
 
-Read-tier roles:
+Read-tier roles and multi-process serving:
 - ``--replication-leader`` — publish every snapshot generation on
   ``GET /replicate/bus``, with leader election on an in-process lease
   store (the elected term's fencing token floors the generations);
 - ``--replica LEADER_URL`` — no cluster access: consume the bus of the
   leader at LEADER_URL and serve every page, ``/events``, the ETags and
   the 304s from the records it applies. It excludes the cluster modes,
-  ``--replication-leader`` and ``--background-sync``.
+  ``--replication-leader`` and ``--background-sync``;
+- ``--workers N`` — this process becomes the supervisor: it syncs the
+  cluster mode's transport in the background (every ``--background-sync``
+  seconds, default 2), publishes each generation into a shared-memory
+  segment and an internal bus, and N worker processes (started with
+  ``spawn``) serve the public port from it, each on the card. It excludes
+  ``--replica`` and ``--replication-leader``.
 
 Serves the dashboard, its fleet rollup and forecast on the CUDA card,
 until interrupted; every GET goes through the request gateway.
@@ -24,8 +30,8 @@ serves. ``--background-sync SECONDS`` syncs the cluster on a background
 thread with list+watch every SECONDS, so page views stop paying for
 syncs and each new snapshot's fleet columns reach the device off the
 request path. ``--active-pods-only`` drops Succeeded and Failed pods from
-the pod list at the apiserver. Every mode, a replica's too, takes
-``--device``.
+the pod list at the apiserver. Every mode, a replica's and each
+worker's too, takes ``--device``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..replicate import (
     generation_floor,
     pool_fetch,
 )
+from ..workers import run_supervisor
 from .app import DashboardApp, DashboardServer
 from .demo import add_mode_arguments, transport_from_args
 
@@ -78,6 +85,11 @@ def main(argv: list[str] | None = None) -> None:
         "--replica", metavar="LEADER_URL", default=None,
         help="serve as a read replica of the leader at LEADER_URL (no cluster access)",
     )
+    parser.add_argument(
+        "--workers", type=int, metavar="N", default=None,
+        help="serve with N worker processes over a shared-memory snapshot plane; this "
+        "process becomes the supervisor and leader",
+    )
     args = parser.parse_args(argv)
 
     if args.replica:
@@ -85,6 +97,8 @@ def main(argv: list[str] | None = None) -> None:
                 or args.background_sync or args.active_pods_only):
             parser.error("--replica excludes the cluster modes, --replication-leader "
                          "and --background-sync")
+        if args.workers:
+            parser.error("--replica excludes --workers (workers are replicas)")
         replica = ReplicaApp(device=args.device)
         BusConsumer(replica, pool_fetch(args.replica)).start()
         # The server's close() closes the replica, which stops the consumer.
@@ -97,10 +111,21 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     transport, mode = transport_from_args(parser, args)
-    app = DashboardApp(
-        transport, device=args.device,
-        pod_field_selector=ACTIVE_PODS_FIELD_SELECTOR if args.active_pods_only else None,
-    )
+    selector = ACTIVE_PODS_FIELD_SELECTOR if args.active_pods_only else None
+    if args.workers:
+        if args.replication_leader:
+            parser.error("--workers excludes --replication-leader: the supervisor already "
+                         "publishes (its internal bus feeds the workers)")
+
+        def leader_app() -> DashboardApp:
+            return DashboardApp(transport, device=args.device, pod_field_selector=selector)
+
+        kwargs = {"sync_interval_s": args.background_sync} if args.background_sync else {}
+        run_supervisor(leader_app, host=args.host, port=args.port, workers=args.workers,
+                       device=args.device, **kwargs)
+        return
+
+    app = DashboardApp(transport, device=args.device, pod_field_selector=selector)
     elector = None
     if args.replication_leader:
         publisher = BusPublisher(note=f"{args.host}:{args.port}", ledger=app.ledger)

@@ -125,6 +125,7 @@ import contextlib
 import html
 import json
 import re
+import socket
 import threading
 import time
 from functools import lru_cache
@@ -380,6 +381,10 @@ class DashboardApp:
         #: /replicate/bus serves it), on a replica its ``BusConsumer``.
         #: None serves alone.
         self.replication: Any = None
+        #: On a worker process (``workers/worker.py``): the shared status
+        #: board's view, stamped with which worker answered, for /healthz
+        #: ``runtime.workers``. None everywhere else.
+        self.workers: Any = None
         # Every scrape the metrics refresher stores (background refits
         # and cold fills) lands in the history store.
         self._metrics_refresher.on_store = self._capture_metrics_store
@@ -1232,7 +1237,8 @@ class DashboardApp:
         profiler's counters, the push pipeline (its differ and SSE hub),
         and the device with its kernel; with the fragment cache on its
         entries, bytes and hit rate, with replication the leader's
-        publisher or the replica's consumer, with a gateway its admission
+        publisher or the replica's (or worker's) consumer, on a worker
+        process the shared status board, with a gateway its admission
         counters and queues, with a pooled transport its connection
         pool."""
         with self._lock:
@@ -1276,6 +1282,10 @@ class DashboardApp:
             out["render"] = self.fragments.snapshot()
         if self.replication is not None:
             out["replication"] = self.replication.snapshot()
+        if self.workers is not None:
+            # Every worker's slot off the shared board: triage must not
+            # depend on which process the kernel handed the socket to.
+            out["workers"] = self.workers.snapshot()
         if self.gateway is not None:
             out["gateway"] = self.gateway.snapshot()
         pool = pool_of(self._transport)
@@ -1293,6 +1303,10 @@ class DashboardApp:
         out: dict[str, Any] = {"torch_device": str(dev)}
         if dev.type == "cuda":
             out["name"] = torch.cuda.get_device_name(dev)
+            # This process's caching allocator: a worker process's share
+            # of the card (its CUDA context's own overhead not included).
+            out["memory_allocated_bytes"] = torch.cuda.memory_allocated(dev)
+            out["memory_reserved_bytes"] = torch.cuda.memory_reserved(dev)
         out.update(
             kernel="forecast_mlp_forward",
             kernel_path="cuda" if dev.type == "cuda" else "torch",
@@ -1362,9 +1376,12 @@ class DashboardApp:
         self._req_total.inc(route="/events", status="200")
         return self.push.hub.subscribe(pages, last_event_id=last_event_id, priority=priority)
 
-    def serve(self, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
+    def serve(
+        self, host: str = "127.0.0.1", port: int = 8632, *, reuse_port: bool = False,
+        listen_socket: socket.socket | None = None,
+    ) -> DashboardServer:
         """Serve this app on ``(host, port)``; see :func:`serve`."""
-        return serve(self, host, port)
+        return serve(self, host, port, reuse_port=reuse_port, listen_socket=listen_socket)
 
     def close(self, timeout_s: float = 30.0) -> None:
         """Stop the gateway and join its render workers, stop the
@@ -1449,9 +1466,25 @@ class DashboardServer:
         self.app.close(timeout_s)
 
 
-def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> DashboardServer:
+class _ReusePortServer(ThreadingHTTPServer):
+    """Binds with ``SO_REUSEPORT``: several worker processes bind one
+    address and the kernel spreads the accepts."""
+
+    def server_bind(self) -> None:
+        self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
+
+
+def serve(
+    app: DashboardApp, host: str = "127.0.0.1", port: int = 8632, *, reuse_port: bool = False,
+    listen_socket: socket.socket | None = None,
+) -> DashboardServer:
     """Bind ``(host, port)`` (port 0 picks a free one) and serve ``app``
-    on a ``ThreadingHTTPServer``: each request thread hands its GET to
+    on a ``ThreadingHTTPServer``. For multi-process serving
+    (`app.py:1720-1760`, `:1895-1915` of the JAX host) ``reuse_port``
+    binds with ``SO_REUSEPORT`` and ``listen_socket`` adopts a listener
+    already bound and listening (a supervisor's, handed to its worker);
+    the default is a plain bind. Each request thread hands its GET to
     the app's gateway (:meth:`DashboardApp.ensure_gateway`, `app.py:1757-1810`
     of the JAX host) and waits; a 304 goes out without a body, a 200 is
     gzipped when the client accepts it. ``/events`` never reaches the
@@ -1586,4 +1619,13 @@ def serve(app: DashboardApp, host: str = "127.0.0.1", port: int = 8632) -> Dashb
         def log_message(self, *args: Any) -> None:
             pass
 
-    return DashboardServer(app, ThreadingHTTPServer((host, port), Handler))
+    if listen_socket is not None:
+        httpd = ThreadingHTTPServer((host, port), Handler, bind_and_activate=False)
+        httpd.socket.close()
+        httpd.socket = listen_socket
+        httpd.server_address = listen_socket.getsockname()[:2]
+    elif reuse_port:
+        httpd = _ReusePortServer((host, port), Handler)
+    else:
+        httpd = ThreadingHTTPServer((host, port), Handler)
+    return DashboardServer(app, httpd)

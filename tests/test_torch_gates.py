@@ -5,7 +5,8 @@ scopes name only the JAX package, and ``tools/`` stays as it is):
 - the injected-clock gate (``WCK001``, ``tools/analysis/rules/wall_clock.py``):
   every TTL, age, burn, retention, sampling, queue-wait and idle-eviction
   decision in the port's ``obs``, ``history``, ``runtime``, ``transport``,
-  ``gateway`` and ``push`` runs on an injected clock;
+  ``gateway``, ``push``, ``replicate`` and ``workers`` runs on an injected
+  clock (JAX's own scope names all eight);
 - no raw ``urlopen`` outside ``transport/`` (``URL001``): every HTTP call
   goes through the keep-alive pool;
 - no direct render outside the gateway (``RND001``): nothing but the
@@ -34,7 +35,7 @@ from tools.analysis.rules.trace_propagation import TracePropagationRule
 from tools.analysis.rules.wall_clock import WallClockRule
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_SCOPES = ("obs", "history", "runtime", "transport", "gateway", "push")
+PORT_SCOPES = ("obs", "history", "runtime", "transport", "gateway", "push", "replicate", "workers")
 
 
 def _port_rule(package: str = "headlamp_tpu_torch") -> WallClockRule:
@@ -53,7 +54,8 @@ def test_the_port_passes_the_wall_clock_gate():
     assert "headlamp_tpu_torch/history/store.py" in scanned
     assert "headlamp_tpu_torch/runtime/refresh.py" in scanned
     for module in ("gateway/pool.py", "gateway/shed.py", "transport/pool.py",
-                   "push/conditional.py"):
+                   "push/conditional.py", "replicate/replica.py", "workers/shm.py",
+                   "workers/worker.py"):
         assert f"headlamp_tpu_torch/{module}" in scanned, module
     assert not any(p.startswith("headlamp_tpu_torch/server/") for p in scanned)
 
