@@ -55,8 +55,12 @@ at 16384 nodes. Then multi-process serving: a shared-memory segment at
 16384 nodes feeding two workers on the card, which paint the leader's
 bytes and upload the segment's columns with no encode, beside a bus
 replica that encodes; then ``--workers 2`` and ``--workers 1`` as
-processes, with their saturation curves. It exits non-zero at the first
-failure, and without CUDA or without the package beside it.
+processes, with their saturation curves. Then the incident drills: the
+six scenario drills twice on the card and once on the CPU with
+byte-identical transcripts and timelines, and the live host's incident
+timeline through a page, a shed, a degraded render, an evicted stream and
+a restore. It exits non-zero at the first failure, and without CUDA or
+without the package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -224,6 +228,28 @@ WORKERS_NODES = 16384
 WORKERS_COUNTS = (2, 1)
 WORKERS_CONCURRENCY = (32,)
 WORKERS_LAUNCHES = 1
+#: Step 22: each card run of a drill launches the kernel once per fit.
+#: Its cold fits (the metrics page's first fill, in the request) are
+#: fixed; the read-tier drill paints a replica that never fits. A drill
+#: that outlives the forecast's 60 s TTL (all but the slow loris, whose
+#: drill is 60 scripted seconds) also starts a background warm refit at
+#: its first stale read, and how many follow is not fixed: a refit lands
+#: on the scripted clock at whatever tick its real fit ends, and an
+#: early landing leaves room for another stale read. So the warm refits
+#: are counted, not held to a constant. The live segment launches once,
+#: for the restored /tpu/metrics.
+SCENARIO_COLD_FITS = {
+    "preemption_wave": 1,
+    "prom_flapping": 1,
+    "hub_restart_herd": 1,
+    "slow_loris_sse": 1,
+    "clock_skew_scrape": 1,
+    "leader_kill_mid_churn": 0,
+}
+SCENARIO_LIVE_LAUNCHES = 1
+#: The drill run once on each device, and discarded, before the matrix.
+SCENARIO_WARMUP = "preemption_wave"
+SCENARIO_PAINTS = 21
 #: The two measured durations a metrics page prints (masked to compare).
 PAGE_TIMINGS = re.compile(r"(history in|took) [0-9.e+-]+ ms")
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
@@ -3785,6 +3811,310 @@ def _workers_as_processes(smi: str) -> dict[str, Any]:
     return out
 
 
+def _header_get(port: int, path: str) -> tuple[int, dict[str, str], str]:
+    """(status, headers, body) of one GET over a fresh connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        return resp.status, dict(resp.getheaders()), body
+    finally:
+        conn.close()
+
+
+def scenarios_phase(torch: Any, smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 22: the incident drills on the card. (a) The matrix: each drill
+    of ``SCENARIO_NAMES`` run twice with ``device="cuda"`` and once with
+    ``device="cpu"`` in this process; both card runs pass with no 5xx,
+    their transcripts are byte-identical to each other and to the CPU
+    run's, and so are the events, counters and response metrics; the
+    metrics-bearing drills infer through the kernel (dispatch ``cuda`` or
+    ``cuda-warm``, never ``torch``), each card run launches it once per
+    inference, its cold fits are ``SCENARIO_COLD_FITS[name]`` as on the
+    CPU, and it refits warm when the CPU run does; the read-tier drill
+    launches 0. (b) The live host at
+    ``--demo large`` behind its gateway over a socket: before any drill no
+    ``runtime.scenarios`` and an empty ``/debug/incidentz``; a process SLO
+    engine on a scripted clock of its own fed breaching latencies until
+    the policy pages, then a shed ``/debug/traces``, a degraded
+    ``/tpu/metrics`` with 0 launches and a debug stream evicted (the
+    incident surfaces, debug routes, are shed too); fed good ones until it
+    restores, one fresh ``/tpu/metrics`` with 1 launch, and the timeline
+    reads paging, shed, degrade, eviction and restore in that order; then the ring
+    filled, ``mark()`` timed and both incident surfaces' paint p50s.
+    Returns the launches and the numbers."""
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+
+    t_step = time.perf_counter()
+    LAUNCHES.reset()
+    out: dict[str, Any] = {"matrix": _scenario_matrix(torch, smi)}
+    matrix_launches = LAUNCHES.n
+    want = out["matrix"]["warmup_launches"] + sum(
+        sum(row["launches"]) for row in out["matrix"]["drills"])
+    check(matrix_launches == want,
+          f"the drill matrix launched {matrix_launches} times, its runs {want}")
+    LAUNCHES.reset()
+    out["live"] = _scenario_live_host(torch, smi)
+    torch.cuda.synchronize()
+    live_launches = LAUNCHES.n
+    check(live_launches == SCENARIO_LIVE_LAUNCHES,
+          f"the live incident host launched {live_launches} times, not {SCENARIO_LIVE_LAUNCHES}")
+    launches = matrix_launches + live_launches
+    out["seconds"] = time.perf_counter() - t_step
+    print(f"scenarios: step 22 launched forecast_mlp_forward {launches} times (matrix "
+          f"{matrix_launches}, live host {live_launches}); took {out['seconds']:.1f} s")
+    return launches, out
+
+
+def _scenario_matrix(torch: Any, smi: str) -> dict[str, Any]:
+    """Step 22a; see :func:`scenarios_phase`. The matrix starts after one
+    discarded run of the first drill on each device. The inferences are counted
+    where every forecast view is built (``service._summarize``, by its
+    dispatch path), and the engine's real request durations are read off
+    the request histogram's observers; both hooks only count."""
+    from headlamp_tpu_torch.models import service
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import slo
+    from headlamp_tpu_torch.obs.metrics import registry
+    from headlamp_tpu_torch.scenarios import SCENARIO_NAMES, ScenarioRunner, get_scenario
+
+    inferences: dict[str, int] = {}
+    durations: list[float] = []
+    listening = [False]
+    summarize = service._summarize
+
+    def counted(history: Any, cfg: Any, preds: Any, dispatch: Any, *rest: Any) -> Any:
+        inferences[dispatch.path] = inferences.get(dispatch.path, 0) + 1
+        return summarize(history, cfg, preds, dispatch, *rest)
+
+    def observe(value: float, labels: Any) -> None:
+        if listening[0]:
+            durations.append(value)
+
+    registry.histogram(slo.REQUEST_DURATION, slo.REQUEST_DURATION_HELP,
+                       labels=("route",)).add_observer(observe)
+    rows = []
+    service._summarize = counted
+    listening[0] = True
+    try:
+        # Real request durations feed each drill's scripted-clock engine,
+        # so a first fit that pays one-time costs (the CPU path's first
+        # use in this process) could page a drill: one discarded run per
+        # device first.
+        warmup_launches = 0
+        for device in ("cuda", "cpu"):
+            durations.clear()
+            before = LAUNCHES.n
+            t0 = time.perf_counter()
+            report = ScenarioRunner(get_scenario(SCENARIO_WARMUP), device=device).run()
+            torch.cuda.synchronize()
+            warmup_launches += LAUNCHES.n - before
+            print(f"scenarios: warm-up {SCENARIO_WARMUP} on {device}: passed "
+                  f"{report.passed}, {(time.perf_counter() - t0) * 1e3:.1f} ms, largest request "
+                  f"{max(durations, default=0.0) * 1e3:.1f} ms (discarded)")
+        for name in SCENARIO_NAMES:
+            runs = []
+            for device in ("cuda", "cuda", "cpu"):
+                inferences.clear()
+                durations.clear()
+                before = LAUNCHES.n
+                t0 = time.perf_counter()
+                report = ScenarioRunner(get_scenario(name), device=device).run()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                runs.append(dict(
+                    device=device, report=report, ms=(time.perf_counter() - t0) * 1e3,
+                    launches=LAUNCHES.n - before, inferences=dict(inferences),
+                    max_request_ms=max(durations, default=0.0) * 1e3,
+                ))
+            card, again, cpu = runs
+            for run in runs:
+                check(run["report"].passed and run["report"].counters["non_shed_5xx"] == 0,
+                      f"{name} on {run['device']}: {[str(f) for f in run['report'].failures]}, "
+                      f"counters {run['report'].counters}, largest request "
+                      f"{run['max_request_ms']:.1f} ms")
+            check(card["report"].transcript == again["report"].transcript,
+                  f"{name}: the two card transcripts differ")
+            for run in (card, again):
+                got, want = run["report"], cpu["report"]
+                check(got.transcript == want.transcript,
+                      f"{name}: the card transcript differs from the CPU's (largest request "
+                      f"{run['max_request_ms']:.1f} ms on the card, {cpu['max_request_ms']:.1f} "
+                      f"on the CPU)")
+                check(json.dumps(got.events, sort_keys=True)
+                      == json.dumps(want.events, sort_keys=True),
+                      f"{name}: the card's timeline events differ from the CPU's")
+                check(got.counters == want.counters and got.metrics == want.metrics,
+                      f"{name}: counters {got.counters} / {want.counters}, metrics "
+                      f"{got.metrics} / {want.metrics}")
+                paths, on_cpu = run["inferences"], cpu["inferences"]
+                check(set(paths) <= {"cuda", "cuda-warm"},
+                      f"{name}: the card inferred through {paths}")
+                check(run["launches"] == sum(paths.values()),
+                      f"{name}: {run['launches']} launches for the card's inferences {paths}")
+                check(paths.get("cuda", 0) == on_cpu.get("torch", 0) == SCENARIO_COLD_FITS[name]
+                      and bool(paths.get("cuda-warm")) == bool(on_cpu.get("torch-warm")),
+                      f"{name}: {paths} on the card, {on_cpu} on the CPU, cold fits want "
+                      f"{SCENARIO_COLD_FITS[name]}")
+            if get_scenario(name).read_tier:
+                check(card["launches"] == again["launches"] == 0,
+                      f"{name}: a replica that never fits launched the kernel")
+            else:
+                check(card["launches"] >= 1, f"{name}: no inference went through the kernel")
+            metrics = card["report"].metrics
+            row = {
+                "name": name,
+                "ms": [round(r["ms"], 3) for r in runs],
+                "launches": [card["launches"], again["launches"]],
+                "card_inferences": [card["inferences"], again["inferences"]],
+                "cpu_inferences": cpu["inferences"],
+                "max_request_ms": [round(r["max_request_ms"], 3) for r in runs],
+                **{k: metrics[k] for k in ("windows_to_page", "recovery_windows",
+                                           "shed_rate_debug", "stale_paint_rate")},
+            }
+            rows.append(row)
+            print(f"scenarios: {name}: card {row['ms'][0]:.1f}, {row['ms'][1]:.1f} ms "
+                  f"({row['launches'][0]}, {row['launches'][1]} launches: "
+                  f"{json.dumps(card['inferences'])}, {json.dumps(again['inferences'])}), CPU "
+                  f"{row['ms'][2]:.1f} ms ({json.dumps(cpu['inferences'])}); largest request "
+                  f"{row['max_request_ms'][0]:.1f} / {row['max_request_ms'][1]:.1f} / "
+                  f"{row['max_request_ms'][2]:.1f} ms; windows_to_page "
+                  f"{row['windows_to_page']}, recovery_windows {row['recovery_windows']}, "
+                  f"shed_rate_debug {row['shed_rate_debug']}, stale_paint_rate "
+                  f"{row['stale_paint_rate']}; transcripts card = card = CPU; on {smi}")
+    finally:
+        listening[0] = False
+        service._summarize = summarize
+    return {"warmup_launches": warmup_launches, "drills": rows}
+
+
+def _scenario_live_host(torch: Any, smi: str) -> dict[str, Any]:
+    """Step 22b; see :func:`scenarios_phase`."""
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import slo
+    from headlamp_tpu_torch.obs.timeline import TIMELINE_CAPACITY
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    out: dict[str, Any] = {}
+    engine_now = [7000.0]
+    engine = slo.SLOEngine(monotonic=lambda: engine_now[0])
+    previous = slo.set_engine(engine)
+    warm_carries.invalidate()
+    app = DashboardApp(make_demo_transport("large"), device="cuda", clock=lambda: FIXED_CLOCK,
+                       min_sync_interval_s=3600.0)
+    gateway = app.ensure_gateway()
+    server = app.serve("127.0.0.1", 0)
+    port = int(server.url.rsplit(":", 1)[1])
+    debug = None
+    try:
+        check(aot.registry().wait_ready(600.0), f"the program registry: {aot.registry().snapshot()}")
+        health = json.loads(http_get(server.url + "/healthz")[1])
+        check("scenarios" not in health["runtime"], "runtime.scenarios outside a drill")
+        status, body = http_get(server.url + "/debug/incidentz")
+        snap = json.loads(body)
+        check(status == 200 and snap["capacity"] == TIMELINE_CAPACITY == 256
+              and snap["events"] == [] and snap["active"] is None,
+              f"/debug/incidentz before any drill: {status} {body[:200]}")
+        t0 = time.perf_counter()
+        check(http_get(server.url + "/tpu")[0] == 200, "GET /tpu")
+        first_ms = (time.perf_counter() - t0) * 1e3
+        LAUNCHES.reset()
+
+        # Paging: breaching /tpu and /tpu/metrics latencies on the engine's
+        # own clock until both objectives page (the first /tpu's real
+        # duration, a sync and a calibration, may page dashboard_render
+        # alone), then the gateway's policy rules on them.
+        fed = 0
+        objectives = ("dashboard_render", "scrape_paint")
+        while any(engine.health_block()[name] != "page" for name in objectives):
+            check(fed < 2000, "the breaching latencies never paged")
+            for route, seconds in (("/tpu", 1.2), ("/tpu/metrics", 5.0)):
+                engine.feed_latency(slo.REQUEST_DURATION, seconds, {"route": route})
+            fed += 1
+        gateway.shed_policy.invalidate()
+        check(gateway.shed_policy.paging(), "both objectives page and the policy does not")
+        status, headers, _ = _header_get(port, "/debug/traces")
+        check(status == 503 and headers.get("Retry-After") == "5",
+              f"a paging /debug/traces answered {status} {headers}")
+        status, headers, body = _header_get(port, "/tpu/metrics")
+        torch.cuda.synchronize()
+        check(status == 200 and headers.get("X-Headlamp-Stale") == "1" and LAUNCHES.n == 0,
+              f"a paging /tpu/metrics: {status}, stale {headers.get('X-Headlamp-Stale')}, "
+              f"{LAUNCHES.n} launches")
+        # A debug-class stream is closed at its handler's first wake.
+        debug = _SseClient(port, "/events?class=debug")
+        bye = debug.next_event()
+        check(bye["event"] == "bye" and bye["data"] == {"reason": "shed"},
+              f"the debug stream read {bye}")
+        # The incident surfaces are debug routes: shed like the rest while
+        # the page lasts (in JAX too), so they are read after the restore.
+        status, _, _ = _header_get(port, "/debug/incidentz")
+        check(status == 503, f"a paging /debug/incidentz answered {status}")
+
+        # Restore: once the 5 m window has drained, good latencies until the
+        # policy restores.
+        engine_now[0] += 400.0
+        good = 0
+        gateway.shed_policy.invalidate()
+        while gateway.shed_policy.paging():
+            check(good < 2000, "good latencies never restored the policy")
+            engine.feed_latency(slo.REQUEST_DURATION, 0.05, {"route": "/tpu"})
+            engine.feed_latency(slo.REQUEST_DURATION, 0.3, {"route": "/tpu/metrics"})
+            good += 1
+            gateway.shed_policy.invalidate()
+        status, headers, body = _header_get(port, "/tpu/metrics")
+        torch.cuda.synchronize()
+        check(status == 200 and headers.get("X-Headlamp-Stale") == "0"
+              and "Utilization Forecast" in body and LAUNCHES.n == 1,
+              f"the restored /tpu/metrics: {status}, stale {headers.get('X-Headlamp-Stale')}, "
+              f"{LAUNCHES.n} launches")
+        status, body = http_get(server.url + "/debug/incidentz")
+        events = json.loads(body)["events"]
+        kinds = [(e["source"], e["kind"]) for e in events]
+        order = [("gateway", "paging"), ("gateway", "shed"), ("gateway", "degrade"),
+                 ("push", "eviction"), ("gateway", "restore")]
+        check(status == 200 and all(k in kinds for k in order)
+              and [kinds.index(k) for k in order] == sorted(kinds.index(k) for k in order),
+              f"/debug/incidentz after the restore: {status} {kinds}")
+        check(next(e for e in events if e["kind"] == "eviction")["detail"]["reason"] == "shed"
+              and next(e for e in events if e["kind"] == "shed")["detail"]["route"]
+              == "/debug/traces", f"the eviction and shed events: {events}")
+        status, body = http_get(server.url + "/debug/incidentz/html")
+        rows = body.count('class="hl-span-row"')
+        check(status == 200 and "Incident Timeline" in body and rows == len(events),
+              f"/debug/incidentz/html: {status}, {rows} rows for {len(events)} events")
+        print(f"scenarios: live host --demo large: first /tpu {first_ms:.1f} ms; {fed} "
+              f"breaching feeds paged both objectives, {good} good "
+              f"feeds restored; /debug/traces and /debug/incidentz 503, degraded /tpu/metrics "
+              f"0 launches, debug stream bye/shed, restored /tpu/metrics 1 launch; timeline "
+              f"{' > '.join(kind for _, kind in order)} ({len(events)} events, {rows} rows)")
+
+        # The ring full: mark() per event, then both surfaces' paint p50s.
+        timeline = app.incidents
+        t0 = time.perf_counter()
+        for i in range(TIMELINE_CAPACITY):
+            timeline.mark("scenario", "fill", {"i": i})
+        mark_us = (time.perf_counter() - t0) * 1e6 / TIMELINE_CAPACITY
+        check(len(timeline.snapshot()["events"]) == TIMELINE_CAPACITY, "the ring is not full")
+        json_p50 = p50_ms(lambda: http_get(server.url + "/debug/incidentz"), SCENARIO_PAINTS)
+        html_p50 = p50_ms(lambda: http_get(server.url + "/debug/incidentz/html"), SCENARIO_PAINTS)
+        out.update(fed=fed, good=good, events=len(events), mark_us=mark_us,
+                   json_p50_ms=json_p50, html_p50_ms=html_p50)
+        print(f"scenarios: mark() {mark_us:.3f} us per event (the eviction observer's cost "
+              f"under the hub's subscription condition); with the ring full "
+              f"({TIMELINE_CAPACITY} events) /debug/incidentz p50 {json_p50:.3f} ms, "
+              f"/debug/incidentz/html p50 {html_p50:.3f} ms over {SCENARIO_PAINTS} GETs; on {smi}")
+    finally:
+        if debug is not None:
+            debug.close()
+        server.close()
+        slo.set_engine(previous)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4089,6 +4419,11 @@ def main() -> int:
     #     workers on the card at 16384 nodes beside a bus replica, then
     #     --workers 2 and --workers 1 as processes with their curves.
     workers_launches, _workers_row = workers_phase(torch, smi)
+
+    # 22. The incident drills: the six drills twice on the card and once
+    #     on the CPU, byte for byte, then the incident timeline of the
+    #     live host through a page, a shed, an eviction and a restore.
+    scenarios_launches, _scenarios_row = scenarios_phase(torch, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -4118,7 +4453,7 @@ def main() -> int:
                      + cluster_launches + viewport_launches + live_launches + registry_launches
                      + mesh_launches + replay_launches + telemetry_launches
                      + gateway_launches + push_launches + replication_launches
-                     + workers_launches),
+                     + workers_launches + scenarios_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -4133,7 +4468,8 @@ def main() -> int:
                              "gateway_and_transport": gateway_launches,
                              "push_and_fragments": push_launches,
                              "replication": replication_launches,
-                             "workers": workers_launches},
+                             "workers": workers_launches,
+                             "scenarios": scenarios_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

@@ -30,7 +30,9 @@ reference and nothing here imports it or JAX.
                    the history-first forecast.
 - ``runtime``    — stale-while-revalidate refresher, warm-carry store and
                    device-to-host transfer funnel behind the host.
-- ``obs``        — request tracing and the ``/metricsz`` registry.
+- ``obs``        — request tracing, the ``/metricsz`` registry, the SLO
+                   engine and the incident timeline (``/debug/incidentz``).
+- ``scenarios``  — the incident drills on scripted clocks (``run_scenario``).
 - ``registration`` — the routes the host serves.
 - ``ui``/``pages`` — element tree, components and the metrics page.
 - ``cli``        — ``python -m headlamp_tpu_torch.cli metrics --demo large``.

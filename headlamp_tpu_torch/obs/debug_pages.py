@@ -1,13 +1,14 @@
 """The HTML faces of the port's telemetry: the trace waterfall, the SLO
-status page, the profiler's flame view and the generation timeline.
+status page, the profiler's flame view, the generation timeline and the
+incident timeline.
 
-The port's copy of ``headlamp_tpu/obs/debug_pages.py`` (its incident
-timeline page comes with the scenarios). Each page is a registered route
+The port's copy of ``headlamp_tpu/obs/debug_pages.py``. Each page is a registered route
 (``registration.py``) built from the ``ui/vdom.py`` components and
 painted through the host's chrome, from a snapshot dict alone, never a
 cluster snapshot, so it paints while the sync is what is being debugged.
 The JSON twins (``/debug/traces``, ``/sloz``, ``/debug/profilez``,
-``/debug/generationz``) are served by the host directly.
+``/debug/generationz``, ``/debug/incidentz``) are served by the host
+directly.
 
 Waterfall: traces slowest first, a row per span with an indented label,
 a bar at the span's offset within the request, and its duration and
@@ -507,4 +508,104 @@ def generations_page(snapshot: dict[str, Any]) -> Element:
             h("h2", None, "Leadership transitions"),
             [_transition_line(t) for t in reversed(transitions)],
         ],
+    )
+
+
+_INCIDENT_SOURCE_CLASS = {
+    "scenario": "hl-status-warn",
+    "slo": "hl-status-err",
+    "gateway": "hl-status-err",
+    "push": "hl-status-warn",
+    "elector": "hl-status-ok",
+}
+
+
+def _incident_row(event: dict[str, Any], first_wall: float, span_s: float) -> Element:
+    """One timeline event as a waterfall row: label source/kind, a bar at
+    the event's wall offset within the drill (display only: the order
+    came from the timeline's sequence), its detail summarized beside."""
+    wall = event.get("wall") or first_wall
+    left = min(max((wall - first_wall) / span_s * 100.0, 0.0), 99.5)
+    stamp = time.strftime("%H:%M:%S", time.localtime(wall))  # display only
+    detail = event.get("detail") or {}
+    summary = " ".join(f"{k}={detail[k]}" for k in sorted(detail))[:120]
+    status_class = _INCIDENT_SOURCE_CLASS.get(event.get("source", ""), "hl-status-ok")
+    return h(
+        "div",
+        {"class_": "hl-span-row"},
+        h(
+            "span",
+            {"class_": f"hl-status {status_class}"},
+            event.get("source", "?"),
+        ),
+        h("span", {"class_": "hl-span-label"}, event.get("kind", "?")),
+        h(
+            "span",
+            {"class_": "hl-span-track"},
+            h(
+                "span",
+                {
+                    "class_": "hl-span-bar",
+                    "style": f"margin-left:{left:.2f}%;width:0.50%",
+                },
+            ),
+        ),
+        h("span", {"class_": "hl-span-ms"}, stamp),
+        summary and h("span", {"class_": "hl-span-attrs"}, summary),
+    )
+
+
+def incidents_page(snapshot: dict[str, Any]) -> Element:
+    """The incident timeline. ``snapshot`` is ``IncidentTimeline.snapshot()``:
+    scenario injections, SLO state flips, gateway rulings, hub evictions
+    and leadership transitions as one ordered waterfall. It paints from
+    the timeline alone, never a cluster snapshot: mid-incident is when it
+    must paint."""
+    events = snapshot.get("events", [])
+    active = snapshot.get("active")
+    walls = [e["wall"] for e in events if e.get("wall") is not None]
+    first_wall = min(walls) if walls else 0.0
+    span_s = max((max(walls) - first_wall), 1e-6) if walls else 1.0
+    hint = (
+        f"{snapshot.get('events_total', 0)} event(s) recorded · "
+        f"{snapshot.get('drills_total', 0)} drill(s) · ring capacity "
+        f"{snapshot.get('capacity', 0)}. Raw JSON: /debug/incidentz · "
+        "triage path: incidentz → /sloz/html (which objective burned) → "
+        "/debug/flightz (which requests paid) — OPERATIONS.md runbook."
+    )
+    return h(
+        "div",
+        {"class_": "hl-traces hl-incidents"},
+        h("h1", None, "Incident Timeline"),
+        h("p", {"class_": "hl-hint"}, hint),
+        active
+        and h(
+            "section",
+            {"class_": "hl-section"},
+            h(
+                "header",
+                {"class_": "hl-trace-header"},
+                h("span", {"class_": "hl-status hl-status-warn"}, "DRILL ACTIVE"),
+                h("strong", None, str(active.get("active", "?"))),
+                h(
+                    "span",
+                    {"class_": "hl-hint"},
+                    f"phase {active.get('phase') or '—'} · "
+                    f"{active.get('injections', 0)} injection(s) — faults "
+                    "on this host are currently REHEARSED",
+                ),
+            ),
+        ),
+        h(
+            "section",
+            {"class_": "hl-section hl-trace"},
+            [_incident_row(e, first_wall, span_s) for e in events]
+            if events
+            else h(
+                "div",
+                {"class_": "hl-empty-content"},
+                "No incident events recorded — run a drill "
+                "(bench.py --scenario NAME) or wait for real trouble.",
+            ),
+        ),
     )

@@ -12,11 +12,11 @@ painted from the host's history store), the native nodes table at
 ``/node/<name>`` and ``/pod/<namespace>/<name>`` views) and the TPU
 columns processor, then the telemetry pages: the trace waterfall
 (``/debug/traces/html``), the SLO status page (``/sloz/html``), the
-profiler's flame view (``/debug/profilez/html``) and the generation
-timeline (``/debug/generationz/html``), registered routes outside the
-sidebar as in JAX. The incident timeline and the Intel pages are not
-registered, so the host answers them with a 404 and never with a
-stand-in page.
+profiler's flame view (``/debug/profilez/html``), the generation
+timeline (``/debug/generationz/html``) and the incident timeline
+(``/debug/incidentz/html``), registered routes outside the sidebar as in
+JAX. The Intel pages are not registered, so the host answers them with a
+404 and never with a stand-in page.
 """
 
 from __future__ import annotations
@@ -25,7 +25,13 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from .integrations import build_node_tpu_columns, node_detail_section, pod_detail_section
-from .obs.debug_pages import generations_page, profile_page, slo_page, traces_page
+from .obs.debug_pages import (
+    generations_page,
+    incidents_page,
+    profile_page,
+    slo_page,
+    traces_page,
+)
 from .pages import (
     device_plugins_page,
     metrics_page,
@@ -156,6 +162,9 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             Route(
                 "/debug/generationz/html", "debug-generations", generations_page,
                 kind="generations",
+            ),
+            Route(
+                "/debug/incidentz/html", "debug-incidents", incidents_page, kind="incidents"
             ),
         ]
     )

@@ -45,10 +45,11 @@ over stdlib ``http.server``:
 - ``GET /sloz``               the SLO engine's report (burn rates, budgets,
   exemplars, the budget self-forecast fit on the app's device), as JSON;
 - ``GET /debug/traces``, ``/debug/flightz``, ``/debug/generationz``,
-  ``/debug/profilez`` (``?burst=SECONDS``) and ``/debug/profilez/folded``
-  the trace ring, the flight recorder, the generation ledger and the
-  sampling profiler; ``/debug/traces/html``, ``/sloz/html``,
-  ``/debug/profilez/html`` and ``/debug/generationz/html`` are their
+  ``/debug/incidentz``, ``/debug/profilez`` (``?burst=SECONDS``) and
+  ``/debug/profilez/folded`` the trace ring, the flight recorder, the
+  generation ledger, the incident timeline and the sampling profiler;
+  ``/debug/traces/html``, ``/sloz/html``, ``/debug/profilez/html``,
+  ``/debug/generationz/html`` and ``/debug/incidentz/html`` are their
   registered HTML pages, painted from the same snapshots and never from
   a cluster snapshot.
 
@@ -114,9 +115,14 @@ differ, hands the same snapshot and peeks to the publisher (its own
 cluster. An inbound ``traceparent`` header links a request's trace to the
 caller's trace in another process (``remote_parent``).
 
-Workers, the incident timeline and the pages not listed above are not
-part of this host; ``/healthz`` leaves out the keys of the JAX host's
-that describe them.
+Each app keeps an incident timeline (``obs/timeline.py``): the gateway's
+shed policy and the push hub report their rulings and evictions to it,
+the scenario engine (``scenarios/``) marks its injections and phases on
+it, and the generation ledger's leadership transitions are merged into
+it; ``/healthz`` carries ``runtime.scenarios`` only while a drill runs.
+On a worker process (``workers/``) ``/healthz`` carries the shared status
+board as ``runtime.workers``. The Intel pages are not part of this host;
+``/healthz`` leaves out the JAX host's keys that describe them.
 """
 
 from __future__ import annotations
@@ -153,6 +159,7 @@ from ..obs.metrics import OPENMETRICS_CONTENT_TYPE, TEXT_CONTENT_TYPE, negotiate
 from ..obs.metrics import registry as metrics_registry
 from ..obs.profiler import attribution, profiler
 from ..obs.propagate import parse_traceparent
+from ..obs.timeline import IncidentTimeline
 from ..obs.trace import annotate, current_trace_id, span, trace_request, trace_ring
 from ..pages.native import native_node_page, native_pod_page
 from ..push import PAGES as PUSH_PAGES
@@ -187,6 +194,7 @@ _OWN_ROUTES = (
     "/debug/profilez",
     "/debug/profilez/folded",
     "/debug/generationz",
+    "/debug/incidentz",
     "/events",
 )
 
@@ -214,11 +222,13 @@ _RING_EXCLUDED = frozenset(
         "/debug/profilez/html",
         "/debug/generationz",
         "/debug/generationz/html",
+        "/debug/incidentz",
+        "/debug/incidentz/html",
     }
 )
 
 #: Route kinds painted from a telemetry snapshot, never a cluster one.
-_DEBUG_KINDS = ("traces", "slo", "profile", "generations")
+_DEBUG_KINDS = ("traces", "slo", "profile", "generations", "incidents")
 
 
 @lru_cache(maxsize=64)
@@ -363,6 +373,11 @@ class DashboardApp:
         #: Lifecycle stamps of every snapshot generation this app syncs
         #: and paints, on the app's clocks.
         self.ledger = GenerationLedger(monotonic=monotonic, wall=clock, role="leader")
+        #: Scenario marks, SLO flips, gateway rulings, hub evictions and
+        #: the ledger's leadership transitions as one ordered log, served
+        #: at /debug/incidentz. Idle, it costs nothing.
+        self.incidents = IncidentTimeline(monotonic=monotonic, wall=clock)
+        self.incidents.ledger = self.ledger
         #: Rendered HTML per differ key, per app (two fleets never share
         #: bytes). ``fragments=False`` turns it off: the non-incremental
         #: oracle the byte-identity checks compare against.
@@ -375,6 +390,7 @@ class DashboardApp:
         #: and the differ runs on whichever thread syncs. The module-level
         #: active pipeline only feeds the connected-clients gauge.
         self.push = PushPipeline(monotonic=monotonic, fragments=self.fragments, ledger=self.ledger)
+        self.push.hub.eviction_observers.append(self.incidents.eviction_observer)
         set_active_push(self.push)
         #: The read tier's hook: on a leader a ``replicate.BusPublisher``
         #: (every generation the sync publishes goes to it, and
@@ -945,6 +961,8 @@ class DashboardApp:
             })
         if route_path == "/debug/generationz":
             return 200, "application/json", json.dumps(self.ledger.snapshot())
+        if route_path == "/debug/incidentz":
+            return 200, "application/json", json.dumps(self.incidents.snapshot())
         if route_path == "/debug/profilez":
             # ?burst=N samples at the burst rate for N seconds (clamped).
             prof = profiler()
@@ -1093,15 +1111,15 @@ class DashboardApp:
         """A telemetry page, painted from its snapshot alone: it reads no
         cluster snapshot and never syncs, so it paints while the sync is
         what is being debugged."""
+        snapshots: dict[str, Callable[[], Any]] = {
+            "traces": trace_ring.snapshot,
+            "slo": lambda: slo_mod.engine().report(),
+            "profile": lambda: profiler().snapshot(),
+            "generations": self.ledger.snapshot,
+            "incidents": self.incidents.snapshot,
+        }
         with span("page.component", kind=route.kind):
-            if route.kind == "traces":
-                el = route.component(trace_ring.snapshot())
-            elif route.kind == "slo":
-                el = route.component(slo_mod.engine().report())
-            elif route.kind == "profile":
-                el = route.component(profiler().snapshot())
-            else:
-                el = route.component(self.ledger.snapshot())
+            el = route.component(snapshots[route.kind]())
         with span("render.html"):
             body = self._page_html(route.name, render_html(el), route_path)
         return 200, "text/html", body
@@ -1238,9 +1256,9 @@ class DashboardApp:
         and the device with its kernel; with the fragment cache on its
         entries, bytes and hit rate, with replication the leader's
         publisher or the replica's (or worker's) consumer, on a worker
-        process the shared status board, with a gateway its admission
-        counters and queues, with a pooled transport its connection
-        pool."""
+        process the shared status board, during a drill the incident
+        timeline's drill, with a gateway its admission counters and
+        queues, with a pooled transport its connection pool."""
         with self._lock:
             background = {
                 **self._background_counters,
@@ -1286,6 +1304,11 @@ class DashboardApp:
             # Every worker's slot off the shared board: triage must not
             # depend on which process the kernel handed the socket to.
             out["workers"] = self.workers.snapshot()
+        drill = self.incidents.health_block()
+        if drill is not None:
+            # Present only during a drill: a probe reader must know the
+            # faults it sees are rehearsed.
+            out["scenarios"] = drill
         if self.gateway is not None:
             out["gateway"] = self.gateway.snapshot()
         pool = pool_of(self._transport)
@@ -1346,6 +1369,9 @@ class DashboardApp:
             # Its snapshot gains the SSE connection count, and the hub
             # sheds debug-class streams off the gateway's paging policy.
             self.gateway.attach_push(self.push)
+            # Its shed, degrade, paging and restore rulings land on the
+            # incident timeline.
+            self.gateway.shed_policy.observers.append(self.incidents.gateway_observer)
         return self.gateway
 
     def open_event_stream(self, path: str, *, last_event_id: str | None = None) -> Subscription:
@@ -1619,13 +1645,19 @@ def serve(
         def log_message(self, *args: Any) -> None:
             pass
 
-    if listen_socket is not None:
-        httpd = ThreadingHTTPServer((host, port), Handler, bind_and_activate=False)
-        httpd.socket.close()
-        httpd.socket = listen_socket
-        httpd.server_address = listen_socket.getsockname()[:2]
-    elif reuse_port:
-        httpd = _ReusePortServer((host, port), Handler)
-    else:
-        httpd = ThreadingHTTPServer((host, port), Handler)
+    try:
+        if listen_socket is not None:
+            httpd = ThreadingHTTPServer((host, port), Handler, bind_and_activate=False)
+            httpd.socket.close()
+            httpd.socket = listen_socket
+            httpd.server_address = listen_socket.getsockname()[:2]
+        elif reuse_port:
+            httpd = _ReusePortServer((host, port), Handler)
+        else:
+            httpd = ThreadingHTTPServer((host, port), Handler)
+    except BaseException:
+        # A bind that fails (a taken port) hands back the profiler use
+        # taken above: no server exists whose close() would.
+        profiler().stop()
+        raise
     return DashboardServer(app, httpd)

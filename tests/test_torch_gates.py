@@ -5,13 +5,15 @@ scopes name only the JAX package, and ``tools/`` stays as it is):
 - the injected-clock gate (``WCK001``, ``tools/analysis/rules/wall_clock.py``):
   every TTL, age, burn, retention, sampling, queue-wait and idle-eviction
   decision in the port's ``obs``, ``history``, ``runtime``, ``transport``,
-  ``gateway``, ``push``, ``replicate`` and ``workers`` runs on an injected
-  clock (JAX's own scope names all eight);
+  ``gateway``, ``push``, ``replicate``, ``workers`` and ``scenarios`` runs on
+  an injected clock (JAX's own scope names all nine);
 - no raw ``urlopen`` outside ``transport/`` (``URL001``): every HTTP call
   goes through the keep-alive pool;
 - no direct render outside the gateway (``RND001``): nothing but the
-  gateway, the pages, the UI and the host's wiring calls ``.handle()`` or
-  a page renderer;
+  gateway, the pages, the UI, the host's wiring and the scenario runner
+  (an admission layer itself: ``policy.decide`` → ``degraded_scope`` →
+  ``handle`` without the gateway's thread hop, as JAX's rule exempts its
+  runner) calls ``.handle()`` or a page renderer;
 - exactly-once SLO observation in the gateway (``OBS001``): no outcome
   path observes the request-duration histogram twice, and the shed,
   304 and 5xx paths never do;
@@ -35,7 +37,9 @@ from tools.analysis.rules.trace_propagation import TracePropagationRule
 from tools.analysis.rules.wall_clock import WallClockRule
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_SCOPES = ("obs", "history", "runtime", "transport", "gateway", "push", "replicate", "workers")
+PORT_SCOPES = (
+    "obs", "history", "runtime", "transport", "gateway", "push", "replicate", "workers", "scenarios",
+)
 
 
 def _port_rule(package: str = "headlamp_tpu_torch") -> WallClockRule:
@@ -49,13 +53,13 @@ def test_the_port_passes_the_wall_clock_gate():
     result = Engine(rules=[_port_rule()], root=REPO).run()
     assert result.diagnostics == [], "\n".join(str(d) for d in result.diagnostics)
     scanned = set(result.parse_counts)
-    for module in ("slo.py", "profiler.py", "ledger.py", "flight.py", "exemplars.py"):
+    for module in ("slo.py", "profiler.py", "ledger.py", "flight.py", "exemplars.py", "timeline.py"):
         assert f"headlamp_tpu_torch/obs/{module}" in scanned, module
     assert "headlamp_tpu_torch/history/store.py" in scanned
     assert "headlamp_tpu_torch/runtime/refresh.py" in scanned
     for module in ("gateway/pool.py", "gateway/shed.py", "transport/pool.py",
                    "push/conditional.py", "replicate/replica.py", "workers/shm.py",
-                   "workers/worker.py"):
+                   "workers/worker.py", "scenarios/runner.py", "scenarios/inject.py"):
         assert f"headlamp_tpu_torch/{module}" in scanned, module
     assert not any(p.startswith("headlamp_tpu_torch/server/") for p in scanned)
 
@@ -99,7 +103,9 @@ def test_only_the_gateway_and_the_host_reach_the_render_path(tmp_path):
     rule = DirectRenderRule()
     rule.top_dirs = ("headlamp_tpu_torch",)
     rule.exempt_dirs = tuple(f"headlamp_tpu_torch/{d}" for d in ("gateway", "ui", "pages"))
-    rule.exempt_files = ("headlamp_tpu_torch/server/app.py",)
+    rule.exempt_files = (
+        "headlamp_tpu_torch/server/app.py", "headlamp_tpu_torch/scenarios/runner.py",
+    )
     result, found = _run(rule)
     assert found == [], "\n".join(str(d) for d in result.diagnostics)
     for module in ("cli.py", "server/standin.py", "obs/debug_pages.py", "history/record.py"):

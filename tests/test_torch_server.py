@@ -208,7 +208,7 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     assert len(warm_carries) == 1
 
 
-@pytest.mark.parametrize("path", ["/debug/incidentz/html", "/debug/incidentz", "/intel"])
+@pytest.mark.parametrize("path", ["/intel/nodes", "/intel/metrics", "/intel"])
 def test_unported_routes_are_404(path):
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     status, ctype, body = app.handle(path)
