@@ -59,8 +59,14 @@ processes, with their saturation curves. Then the incident drills: the
 six scenario drills twice on the card and once on the CPU with
 byte-identical transcripts and timelines, and the live host's incident
 timeline through a page, a shed, a degraded render, an evicted stream and
-a restore. It exits non-zero at the first failure, and without CUDA or
-without the package beside it.
+a restore. Last, the Intel GPU provider: the host at ``--demo mixed`` on the
+card, its Intel pages, Intel columns and Intel sections byte for byte the
+same app's on the CPU; a mixed fleet of 16384 TPU and 512 Intel nodes whose
+TPU rollup on the card equals its oracle with no Intel node in the card's
+columns, the Intel provider's cost per sync tick and the Intel paints; and
+a bus replica and a segment worker painting the leader's Intel pages. It
+exits non-zero at the first failure, and without CUDA or without the
+package beside it.
 The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -250,8 +256,32 @@ SCENARIO_LIVE_LAUNCHES = 1
 #: The drill run once on each device, and discarded, before the matrix.
 SCENARIO_WARMUP = "preemption_wave"
 SCENARIO_PAINTS = 21
+#: Step 23, the Intel provider. The host's paths at ``--demo mixed``, each
+#: held byte for byte to the same app on the CPU; then the mixed fleet at
+#: full size: ``fleet_viewport(INTEL_TPU_NODES)`` plus INTEL_NODES Intel
+#: nodes, INTEL_PODS Intel pods and one CR; the quiet and changed ticks
+#: timed per provider set, in turns; the Intel paints timed at that size.
+INTEL_HOST_PATHS = ("/intel", "/intel/nodes?page=1", "/intel/pods", "/intel/deviceplugins",
+                    "/intel/metrics", "/nodes", "/node/arc-node-1",
+                    "/node/gke-v5e16-pool-w0", "/pod/default/transcode-1")
+INTEL_TPU_NODES = 16384
+INTEL_NODES = 512
+INTEL_PODS = 1024
+INTEL_TICKS = 5
+INTEL_TIMED = 9
+INTEL_SCALE_PAGES = ("/intel", "/intel/nodes", "/intel/pods")
+#: The read tier's Intel pages: a replica and a worker paint the leader's.
+INTEL_SNAPSHOT_PAGES = ("/intel", "/intel/nodes", "/intel/pods", "/intel/deviceplugins")
+#: Step 23's launches: /tpu/metrics's cold fit on the demo host. The
+#: full-size fleet, the leader, the replica and the worker fit nothing.
+INTEL_LAUNCHES = 1
 #: The two measured durations a metrics page prints (masked to compare).
 PAGE_TIMINGS = re.compile(r"(history in|took) [0-9.e+-]+ ms")
+#: The forecast section of /tpu/metrics: the card's fit and the CPU's
+#: agree to PAGE_FIT_TOL, not byte for byte.
+FORECAST_SECTION = re.compile(
+    r'<section class="hl-section"><h2 class="hl-section-title">Utilization Forecast.*?</section>',
+    re.S)
 #: Calls time_device_ms times after warm-up; the spin it queues ahead of
 #: them (GPU cycles) covers their enqueue.
 TIMED_CALLS = 200
@@ -3467,8 +3497,8 @@ def workers_phase(torch: Any, smi: str) -> tuple[int, dict[str, Any]]:
     ``SegmentBusPublisher`` into a segment in /dev/shm, two ``ReplicaApp``
     workers on the card fed by ``ShmConsumer``, and a bus-fed replica
     (step 20's path) beside them. The workers' eight pages, ETags, 304s and
-    a flip's ``/events`` frame equal the leader's; each apply seeds one
-    provider's columns; a worker's first ``/tpu`` after an apply opens no
+    a flip's ``/events`` frame equal the leader's; each apply seeds both
+    providers' columns (TPU and Intel); a worker's first ``/tpu`` after an apply opens no
     ``device_cache.upload`` span and uploads nothing. Printed: the publish
     (bus encode, second ``encode_fleet`` and map write), each worker's
     read, apply and seed, and the first ``/tpu`` and ``/tpu/fleet`` of a
@@ -3576,7 +3606,7 @@ def _workers_in_process(torch: Any, smi: str, segment: Callable[[str, int], None
                   f"worker {i} did not apply g{gen} off the segment: {consumer.snapshot()}")
             totals = span_totals(_newest_trace("/workers/poll"))
             providers = len(rep._last_snapshot.providers)
-            check(rep._ctx.fleet_cache.seeds - seeds == providers == 1
+            check(rep._ctx.fleet_cache.seeds - seeds == providers == 2
                   and consumer.seed_errors == 0 and consumer.applied_fallback == 0,
                   f"worker {i} seeded {rep._ctx.fleet_cache.seeds - seeds} of {providers}")
             rows.append({"read_ms": totals["workers.read"], "apply_ms": totals["replicate.apply"],
@@ -4115,6 +4145,292 @@ def _scenario_live_host(torch: Any, smi: str) -> dict[str, Any]:
     return out
 
 
+def intel_phase(torch: Any, smi: str) -> tuple[int, dict[str, Any]]:
+    """Step 23: the Intel GPU provider on the card. (a) The host at
+    ``--demo mixed`` on the card behind its gateway over a socket: every
+    path of INTEL_HOST_PATHS, then ``/tpu`` and ``/tpu/metrics`` (its cold
+    fit, 1 launch), each ``<main>`` byte for byte the same app's on the
+    CPU (the forecast section within PAGE_FIT_TOL instead, the two printed
+    durations masked), and ``/healthz``. (b) The mixed fleet at full
+    size: ``fleet_viewport(INTEL_TPU_NODES)`` plus INTEL_NODES Intel nodes
+    (1 or 2 cards, discrete or integrated, every 16th not Ready),
+    INTEL_PODS Intel pods (every 8th Pending) and one CR: the TPU rollup on
+    the card equals its Python oracle exactly, the card's columns hold
+    exactly the TPU nodes, the Intel view's stats are the Python pass's and
+    its device backend is refused; quiet and changed ticks of a context
+    with the TPU provider alone and with both, INTEL_TICKS each in turns;
+    the Intel pages' paint p50s. (c) A leader with a segment publisher, a
+    bus replica and a segment-fed worker on the card at ``--demo mixed``:
+    the replica and the worker paint the leader's Intel pages, the worker
+    seeds both providers and its Intel columns on the card equal the
+    segment's, and neither launches the kernel. Returns the launches and
+    the numbers."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from headlamp_tpu_torch.analytics import stats
+    from headlamp_tpu_torch.context import AcceleratorDataContext
+    from headlamp_tpu_torch.domain.accelerator import TPU_PROVIDER
+    from headlamp_tpu_torch.fleet import (
+        fleet_transport,
+        fleet_viewport,
+        make_intel_crd,
+        make_intel_node,
+        make_intel_pod,
+    )
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import slo
+    from headlamp_tpu_torch.replicate import ReplicaApp, parse_payload
+    from headlamp_tpu_torch.runtime.columns import ARRAY_FIELDS
+    from headlamp_tpu_torch.runtime.device_cache import warm_carries
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+    from headlamp_tpu_torch.workers import (
+        SegmentBusPublisher,
+        SegmentReader,
+        ShmConsumer,
+        SnapshotSegment,
+    )
+
+    t_step = time.perf_counter()
+    clock = lambda: FIXED_CLOCK  # noqa: E731
+    out: dict[str, Any] = {}
+    warm_carries.invalidate()
+    engine = slo.SLOEngine()
+
+    def masked(body: str) -> str:
+        return PAGE_TIMINGS.sub("", _main_of(body))
+
+    # (a) The demo host on the card against the same app on the CPU.
+    app = DashboardApp(make_demo_transport("mixed"), device="cuda", clock=clock)
+    app.ensure_gateway(engine=lambda: engine)
+    cpu = DashboardApp(make_demo_transport("mixed"), device="cpu", clock=clock)
+    server = app.serve("127.0.0.1", 0)
+    port = int(server.url.rsplit(":", 1)[1])
+    try:
+        # serve() starts the process registry's capture (ready since step
+        # 9 in a whole run); no device-wide sync may overlap a capture.
+        check(aot.registry().wait_ready(600.0), "the program registry never became ready")
+        LAUNCHES.reset()
+        host_ms: dict[str, float] = {}
+        for path in INTEL_HOST_PATHS + ("/tpu",):
+            status, _, body, ms = _keepalive_get(port, path)
+            want = cpu.handle(path)
+            check(status == want[0] == 200, f"GET {path} answered {status}")
+            check(masked(body.decode()) == masked(want[2]),
+                  f"{path}: the card's <main> differs from the CPU app's")
+            host_ms[path] = ms
+        check(LAUNCHES.n == 0, f"the Intel pages launched the kernel {LAUNCHES.n} times")
+        status, _, body, ms = _keepalive_get(port, "/tpu/metrics")
+        # The CPU app fits cold too: the card's fit left its carry in the
+        # process-wide warm-carry cache.
+        warm_carries.invalidate()
+        want = cpu.handle("/tpu/metrics")
+        host_ms["/tpu/metrics"] = ms
+        card_page, cpu_page = body.decode(), want[2]
+        check(status == 200 and "CUDA kernel (H100)" in card_page,
+              f"GET /tpu/metrics answered {status} without the kernel")
+        check(FORECAST_SECTION.sub("", masked(card_page))
+              == FORECAST_SECTION.sub("", masked(cpu_page)),
+              "/tpu/metrics outside the forecast differs from the CPU app's")
+        peak = re.compile(r'data-status="\w+">([0-9.]+)%')
+        card_peaks = [float(v) for v in peak.findall(FORECAST_SECTION.search(card_page)[0])]
+        cpu_peaks = [float(v) for v in peak.findall(FORECAST_SECTION.search(cpu_page)[0])]
+        fit_diff = max(abs(a - b) for a, b in zip(sorted(card_peaks), sorted(cpu_peaks))) / 100
+        check(len(card_peaks) == len(cpu_peaks) == 16 and fit_diff <= PAGE_FIT_TOL,
+              f"the forecast's predicted peaks differ from the CPU's by {fit_diff}")
+        torch.cuda.synchronize()
+        host_launches = LAUNCHES.n
+        check(host_launches == INTEL_LAUNCHES,
+              f"the mixed host launched the kernel {host_launches} times, not {INTEL_LAUNCHES}")
+        health = json.loads(_keepalive_get(port, "/healthz")[2])
+        check(health["ok"] is True and health["nodes"] == 7 and health["errors"] == [],
+              f"/healthz at --demo mixed: ok {health['ok']}, nodes {health['nodes']}")
+        print(f"intel: --demo mixed on the card over the socket: {len(INTEL_HOST_PATHS) + 2} "
+              f"paths with the CPU app's <main> (/tpu/metrics outside its forecast; predicted "
+              f"peaks within {fit_diff:.3e} of the CPU fit, tol {PAGE_FIT_TOL:g}); "
+              f"forecast_mlp_forward launches {host_launches} (want {INTEL_LAUNCHES}); "
+              f"/healthz ok, nodes 7; first-GET ms "
+              + ", ".join(f"{p} {v:.1f}" for p, v in host_ms.items()))
+    finally:
+        server.close()
+        cpu.close()
+    out["host_ms"] = host_ms
+
+    # (b) The mixed fleet at full size.
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    fleet = fleet_viewport(INTEL_TPU_NODES)
+    for i in range(INTEL_NODES):
+        fleet["nodes"].append(make_intel_node(
+            f"arc-{i:03d}", gpus=1 + i % 2, discrete=i % 2 == 0, ready=i % 16 != 0))
+    for i in range(INTEL_PODS):
+        fleet["pods"].append(make_intel_pod(
+            f"gpu-job-{i}", namespace="media", node=f"arc-{i % INTEL_NODES:03d}",
+            phase="Pending" if i % 8 == 0 else "Running"))
+    fleet["gpudeviceplugins"] = [make_intel_crd(desired=INTEL_NODES)]
+    build_s = time.perf_counter() - t0
+    big = DashboardApp(fleet_transport(fleet), device="cuda", clock=clock)
+    big.ensure_gateway(engine=lambda: engine)
+    server = big.serve("127.0.0.1", 0)
+    port = int(server.url.rsplit(":", 1)[1])
+    try:
+        status, _, body, first_ms = _keepalive_get(port, "/tpu")
+        check(status == 200 and "Chip Allocation" in body.decode(), f"GET /tpu answered {status}")
+        snap = big._last_snapshot
+        tpu, intel = snap.provider("tpu"), snap.provider("intel")
+        check(len(tpu.nodes) == INTEL_TPU_NODES and len(intel.nodes) == INTEL_NODES
+              and len(intel.pods) == INTEL_PODS,
+              f"classified {len(tpu.nodes)} TPU and {len(intel.nodes)} Intel nodes")
+        cache = big._ctx.fleet_cache
+        got = stats.fleet_stats(tpu.view, device="cuda", fleet_cache=cache, backend="cuda")
+        want = stats.python_fleet_stats(tpu.view)
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        check(got.keys() == want.keys() and not bad,
+              f"the TPU rollup on the card differs from its oracle in {bad}")
+        cols = cache.fleet_for(tpu.view)
+        tpu_names = [n["metadata"]["name"] for n in tpu.nodes]
+        check(set(cache._entries) == {"tpu"} and cols.n_nodes == INTEL_TPU_NODES
+              and list(cols.node_names) == tpu_names
+              and not any(name.startswith("arc-") for name in cols.node_names)
+              and cols.node_capacity.device.type == "cuda",
+              f"the card's columns: {sorted(cache._entries)}, {cols.n_nodes} nodes")
+        intel_stats = stats.fleet_stats(intel.view, device="cuda", fleet_cache=cache)
+        check(intel_stats == stats.python_fleet_stats(intel.view)
+              and intel_stats["nodes_total"] == INTEL_NODES
+              and intel_stats["generation_counts"] == {}
+              and set(cache._entries) == {"tpu"},
+              f"the Intel view's stats: {sorted(intel_stats)}")
+        try:
+            stats.fleet_stats(intel.view, device="cuda", fleet_cache=cache, backend="cuda")
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure("the device backend was not refused for the Intel view")
+        print(f"intel: {INTEL_TPU_NODES} TPU + {INTEL_NODES} Intel nodes, "
+              f"{len(tpu.pods)} TPU + {INTEL_PODS} Intel pods (built in {build_s:.1f} s): first "
+              f"/tpu {first_ms:.1f} ms; the TPU rollup on the card equals python_fleet_stats; "
+              f"the card's columns hold exactly the {cols.n_nodes} TPU nodes (no Intel node); "
+              f"the Intel view's stats are the Python pass's "
+              f"({intel_stats['capacity']} devices, {intel_stats['in_use']} in use, "
+              f"{intel_stats['nodes_ready']} ready) and its device backend is refused")
+        paint: dict[str, list[float]] = {p: [] for p in INTEL_SCALE_PAGES}
+        for _ in range(INTEL_TIMED):
+            for path in INTEL_SCALE_PAGES:
+                status, _, body, ms = _keepalive_get(port, path)
+                check(status == 200, f"GET {path} at full size answered {status}")
+                paint[path].append(ms)
+        paint_p50 = {p: round(statistics.median(v), 2) for p, v in paint.items()}
+        print(f"intel: paint p50 of {INTEL_TIMED} over the socket at {INTEL_TPU_NODES} + "
+              f"{INTEL_NODES} nodes: {paint_p50}; all {json.dumps(paint)}; on {smi}")
+        out["paint_p50_ms"] = paint_p50
+    finally:
+        server.close()
+        big.close()
+
+    contexts = {}
+    for label, providers in (("tpu_only", (TPU_PROVIDER,)), ("tpu_and_intel", None)):
+        transport = fleet_transport(fleet)
+        kwargs = {} if providers is None else {"providers": providers}
+        ctx = AcceleratorDataContext(transport, device="cuda", clock=clock, watch=True, **kwargs)
+        ctx.sync()  # hydrate: one LIST chain per track
+        contexts[label] = (ctx, transport)
+    ticks: dict[str, dict[str, list[float]]] = {
+        label: {"quiet": [], "changed": []} for label in contexts}
+    flip = fleet["nodes"][1]
+    for i in range(INTEL_TICKS):
+        for label, (ctx, transport) in contexts.items():
+            before = ctx.snapshot().provider("tpu").view.version
+            t0 = time.perf_counter()
+            snap = ctx.sync()
+            ticks[label]["quiet"].append((time.perf_counter() - t0) * 1e3)
+            check(snap.provider("tpu").view.version == before,
+                  f"a quiet {label} tick changed the version")
+            node = copy.deepcopy(flip)
+            for cond in node["status"]["conditions"]:
+                if cond["type"] == "Ready":
+                    cond["status"] = "False" if i % 2 == 0 else "True"
+            node["metadata"]["resourceVersion"] = str(100 + i)
+            transport.node_feed.push("MODIFIED", node)
+            t0 = time.perf_counter()
+            snap = ctx.sync()
+            ticks[label]["changed"].append((time.perf_counter() - t0) * 1e3)
+            check(snap.provider("tpu").view.version == before + 1,
+                  f"a changed {label} tick did not bump the version")
+            check(("intel" in snap.providers) == (label == "tpu_and_intel"),
+                  f"the {label} snapshot's providers: {sorted(snap.providers)}")
+    for ctx, _ in contexts.values():
+        ctx.close()
+    tick_p50 = {label: {kind: round(statistics.median(v), 3) for kind, v in kinds.items()}
+                for label, kinds in ticks.items()}
+    cost = {kind: round(tick_p50["tpu_and_intel"][kind] - tick_p50["tpu_only"][kind], 3)
+            for kind in ("quiet", "changed")}
+    print(f"intel: tick p50 of {INTEL_TICKS} in turns at {INTEL_TPU_NODES} + {INTEL_NODES} "
+          f"nodes (watch on): TPU provider alone {tick_p50['tpu_only']}, TPU and Intel "
+          f"{tick_p50['tpu_and_intel']} ms; the Intel provider's cost per tick {cost} ms; "
+          f"all {json.dumps(ticks)}; on {smi}")
+    out.update(tick_p50_ms=tick_p50, intel_tick_cost_ms=cost)
+    torch.cuda.synchronize()
+    scale_launches = LAUNCHES.n
+    check(scale_launches == 0, f"the full-size fleet launched the kernel {scale_launches} times")
+
+    # (c) The read tier at --demo mixed: a bus replica and a segment worker.
+    LAUNCHES.reset()
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir()
+    seg = SnapshotSegment(os.path.join(shm, f"headlamp-torch-intel-{os.getpid()}.seg"),
+                          size=8 << 20)
+    leader = DashboardApp(make_demo_transport("mixed"), device="cuda", clock=clock,
+                          min_sync_interval_s=3600.0)
+    pub = SegmentBusPublisher(seg, wall=clock, ledger=leader.ledger)
+    leader.replication = pub
+    replica = ReplicaApp(device="cuda", clock=clock)
+    worker = ReplicaApp(device="cuda", clock=clock)
+    consumer = ShmConsumer(worker, seg.path)
+    try:
+        leader._synced_snapshot()
+        record = json.loads(pub._backlog[-1][1])
+        check(set(record["snapshot"]["providers"]) == {"tpu", "intel"}
+              and record["snapshot"]["providers"]["intel"]["workloads"],
+              "the leader's record has no Intel block")
+        _, records = parse_payload(pub.payload_after(None))
+        check(all(replica.apply_record(r) for r in records), "the replica refused a record")
+        check(consumer.poll_once() == 1 and consumer.seeds == 2 and consumer.seed_errors == 0,
+              f"the worker's seed: {consumer.snapshot()}")
+        reader = SegmentReader(seg.path)
+        frame = reader.read()
+        reader.close()
+        version, seeded = worker._ctx.fleet_cache._entries["intel"]
+        check(version == worker.snapshot_generation() and seeded.n_nodes == 2
+              and all(getattr(seeded, f).device.type == "cuda" for f in ARRAY_FIELDS)
+              and all(np.array_equal(getattr(seeded, f).cpu().numpy(),
+                                     getattr(frame.columns["intel"], f)) for f in ARRAY_FIELDS),
+              "the worker's Intel columns on the card differ from the segment's")
+        for path in INTEL_SNAPSHOT_PAGES + ("/nodes", "/node/arc-node-1"):
+            want = leader.handle(path)
+            for name, rep in (("replica", replica), ("worker", worker)):
+                check(rep.handle(path) == want, f"the {name}'s {path} differs from the leader's")
+        torch.cuda.synchronize()
+        tier_launches = LAUNCHES.n
+        check(tier_launches == 0, f"the read tier launched the kernel {tier_launches} times")
+        print(f"intel: leader record with the intel block ({len(pub._backlog[-1][1])} bytes); "
+              f"a bus replica and a segment worker on the card paint the leader's "
+              f"{', '.join(INTEL_SNAPSHOT_PAGES)}, /nodes and /node/arc-node-1 bytes; the worker "
+              f"seeds {consumer.seeds} providers and its Intel columns on the card equal the "
+              f"segment's; forecast_mlp_forward launches 0")
+    finally:
+        for a in (worker, replica, leader):
+            a.close()
+        seg.close()
+        seg.unlink()
+    out["seconds"] = time.perf_counter() - t_step
+    launches = host_launches + scale_launches + tier_launches
+    print(f"intel: step 23 launched forecast_mlp_forward {launches} times; took "
+          f"{out['seconds']:.1f} s; on {smi}")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4424,6 +4740,12 @@ def main() -> int:
     #     on the CPU, byte for byte, then the incident timeline of the
     #     live host through a page, a shed, an eviction and a restore.
     scenarios_launches, _scenarios_row = scenarios_phase(torch, smi)
+
+    # 23. The Intel provider: the host at --demo mixed against the CPU app,
+    #     the mixed fleet at 16384 + 512 nodes (the TPU rollup, the card's
+    #     columns, the Intel provider's cost per tick, the Intel paints),
+    #     and a bus replica and a segment worker painting the Intel pages.
+    intel_launches, _intel_row = intel_phase(torch, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -4453,7 +4775,7 @@ def main() -> int:
                      + cluster_launches + viewport_launches + live_launches + registry_launches
                      + mesh_launches + replay_launches + telemetry_launches
                      + gateway_launches + push_launches + replication_launches
-                     + workers_launches + scenarios_launches),
+                     + workers_launches + scenarios_launches + intel_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -4469,7 +4791,8 @@ def main() -> int:
                              "push_and_fragments": push_launches,
                              "replication": replication_launches,
                              "workers": workers_launches,
-                             "scenarios": scenarios_launches},
+                             "scenarios": scenarios_launches,
+                             "intel_provider": intel_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

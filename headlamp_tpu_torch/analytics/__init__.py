@@ -8,11 +8,12 @@ comes out of one rollup of torch ops on the columns' device
 ``stats``. The viewport tree's per-cluster and per-slice sums come out of
 the region rollup over the same columns (``fleet_torch.region_rollup``).
 The trend page's per-series statistics come out of one batched program
-(``trends.series_stats_batch``).
+(``trends.series_stats_batch``; ``series_stats`` is one series').
 """
 
 from .encode import GENERATION_IDS, PHASE_IDS, FleetArrays, encode_fleet
 from .fleet_torch import fleet_rollup, region_rollup, rollup_to_dict
+from .trends import series_stats
 
 __all__ = [
     "FleetArrays",
@@ -22,4 +23,5 @@ __all__ = [
     "fleet_rollup",
     "region_rollup",
     "rollup_to_dict",
+    "series_stats",
 ]

@@ -76,6 +76,12 @@ def python_fleet_stats(view: FleetView) -> dict[str, Any]:
     )
 
     nodes_ready = sum(1 for n in view.nodes if objects.is_node_ready(n))
+    if provider.name == "tpu":
+        generation_counts = _generation_counts(view.nodes)
+    else:
+        # Intel has no TPU generation vocabulary; its pages group by GPU
+        # type separately.
+        generation_counts = {}
 
     # Per-node in-use from Running pods, in view.nodes order.
     in_use_by_node: dict[str, int] = {}
@@ -105,7 +111,7 @@ def python_fleet_stats(view: FleetView) -> dict[str, Any]:
         "nodes_total": len(view.nodes),
         "nodes_ready": nodes_ready,
         "phase_counts": objects.count_pod_phases(view.pods),
-        "generation_counts": _generation_counts(view.nodes),
+        "generation_counts": generation_counts,
         "per_node_in_use": per_node_in_use,
         "max_node_util_pct": float(max_util),
         "hot_nodes": hot_nodes,
@@ -254,9 +260,11 @@ def fleet_stats(
     Policy: the Python pass below ``DEVICE_ROLLUP_MIN_NODES``; at scale,
     the first request calibrates (:func:`_calibrate`) and serves the
     device rollup, and every later request serves whichever measured
-    faster for its fleet size. ``backend`` pins a path for tests and
-    benches ("python", or the device's backend). Nothing falls back: an
-    exception from the device rollup propagates.
+    faster for its fleet size. A non-TPU view (Intel) is always the
+    Python pass's: the columns carry TPU device accessors only.
+    ``backend`` pins a path for tests and benches ("python", or the
+    device's backend, which raises ``ValueError`` for a non-TPU view).
+    Nothing falls back: an exception from the device rollup propagates.
 
     Traced as ``analytics.rollup`` with the node count, annotated with
     the backend that served and, for the device rollup, the fleet
@@ -281,7 +289,17 @@ def _fleet_stats_dispatch(
             return python_fleet_stats(view)
         if backend != name:
             raise ValueError(f"backend {backend!r} does not run on {device}")
+        if view.provider.name != "tpu":
+            raise ValueError(
+                f"backend={backend!r} unsupported for provider "
+                f"{view.provider.name!r}: the columnar encoding carries "
+                "TPU device accessors only"
+            )
         return _device_stats(view, device, fleet_cache, rollup_results)
+    if view.provider.name != "tpu":
+        # The documented dispatch, not a fallback: the columns carry TPU
+        # device accessors only, so a non-TPU view is the Python pass's.
+        return python_fleet_stats(view)
     n = len(view.nodes)
     choice = chosen_backend(n, device)
     if choice == "calibrating":

@@ -2,11 +2,14 @@
 
 ``python -m headlamp_tpu_torch.cli overview --demo large`` renders the
 page the JAX package's CLI renders, through ``ui.vdom.render_text``:
-``overview``, ``nodes``, ``pods``, ``deviceplugins``, ``topology`` and
-``cluster-nodes`` (the native nodes table with the TPU columns) from one
-synced cluster snapshot (the Overview's aggregates from the fleet rollup
-on the CUDA device), and ``metrics`` with the forecast fit
-on the CUDA device and served by the fused CUDA kernel. ``--device cpu``
+``overview``, ``nodes``, ``pods``, ``deviceplugins``, ``topology``,
+``intel``, ``intel-nodes``, ``intel-pods``, ``intel-deviceplugins`` and
+``cluster-nodes`` (the native nodes table with the TPU and Intel
+columns) from one synced cluster snapshot (the Overview's aggregates
+from the fleet rollup on the CUDA device), ``metrics`` with the forecast
+fit on the CUDA device and served by the fused CUDA kernel, and
+``intel-metrics`` from the i915 power series (``--demo mixed`` has both
+providers). ``--device cpu``
 runs the rollup, the fit and the kernel's plain version on the CPU
 instead. Without CUDA and without ``--device cpu`` it fails.
 ``--apiserver URL`` or ``--in-cluster`` reads a real cluster over the
@@ -23,6 +26,7 @@ from typing import Callable
 from .context.accelerator_context import AcceleratorDataContext
 from .device import DeviceLike, resolve_device
 from .metrics.client import fetch_tpu_metrics
+from .metrics.intel_client import fetch_intel_gpu_metrics
 from .models.service import compute_forecast
 from .registration import register_plugin
 from .server.demo import add_mode_arguments, transport_from_args
@@ -37,6 +41,11 @@ PAGES = {
     "deviceplugins": "/tpu/deviceplugins",
     "topology": "/tpu/topology",
     "metrics": "/tpu/metrics",
+    "intel": "/intel",
+    "intel-nodes": "/intel/nodes",
+    "intel-pods": "/intel/pods",
+    "intel-deviceplugins": "/intel/deviceplugins",
+    "intel-metrics": "/intel/metrics",
     "cluster-nodes": "/nodes",
 }
 
@@ -62,6 +71,8 @@ def render_page(
         metrics = fetch_tpu_metrics(transport, clock=clock)
         forecast = compute_forecast(transport, metrics, clock=clock, device=dev)
         return render_text(route.component(metrics, forecast))
+    if route.kind == "intel-metrics":
+        return render_text(route.component(fetch_intel_gpu_metrics(transport, clock=clock)))
     snap = AcceleratorDataContext(transport, device=dev, clock=clock).sync()
     if route.kind == "topology":
         return render_text(route.component(snap))

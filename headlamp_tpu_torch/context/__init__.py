@@ -13,6 +13,7 @@ from .accelerator_context import (
 )
 from .sources import (
     ACTIVE_PODS_FIELD_SELECTOR,
+    INTEL_SOURCE,
     NODES_PATH,
     PODS_PATH,
     TPU_SOURCE,
@@ -24,6 +25,7 @@ __all__ = [
     "ACTIVE_PODS_FIELD_SELECTOR",
     "AcceleratorDataContext",
     "ClusterSnapshot",
+    "INTEL_SOURCE",
     "NODES_PATH",
     "PODS_PATH",
     "ProviderSource",

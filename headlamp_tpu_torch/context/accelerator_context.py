@@ -42,6 +42,7 @@ from ..domain import objects as obj
 from ..domain.accelerator import PROVIDERS, FleetView, Provider, classify_fleet
 from ..runtime.device_cache import DeviceFleetCache, RollupResultCache
 from ..transport.api_proxy import DEFAULT_TIMEOUT_S, ApiError, Transport
+from ..transport.pool import fanout, pool_of
 from .sources import (
     NODES_PATH,
     PODS_PATH,
@@ -174,6 +175,8 @@ class AcceleratorDataContext:
         transport: Transport,
         *,
         device: DeviceLike = None,
+        providers: tuple[Provider, ...] = PROVIDERS,
+        sources: Mapping[str, ProviderSource] | None = None,
         clock: Callable[[], float] = time.time,
         watch: bool = False,
         pod_field_selector: str | None = None,
@@ -182,8 +185,8 @@ class AcceleratorDataContext:
         self.fleet_cache = DeviceFleetCache(self._device)
         self.rollup_results = RollupResultCache()
         self._transport = transport
-        self._providers = PROVIDERS
-        self._sources = default_sources()
+        self._providers = providers
+        self._sources = dict(sources if sources is not None else default_sources())
         self._timeout_s = DEFAULT_TIMEOUT_S
         # Wall clock on purpose: it only stamps snapshot.fetched_at, a
         # displayed timestamp. Elapsed-time telemetry (sync coalescing,
@@ -411,18 +414,33 @@ class AcceleratorDataContext:
     # ------------------------------------------------------------------
 
     def _sync_imperative(self, detect_changes: bool = True) -> None:
-        """Each provider's chains (every provider has a source), then
-        change detection: the refetched
-        results are fingerprint-compared to the previous tick's —
-        (uid, resourceVersion) per object, not a deep dict walk. Only a
-        real difference marks the sync dirty (see ``_changed``)."""
+        """Per-provider chains run concurrently: the chains are
+        independent, and a blackholed provider (firewalled Intel
+        namespaces on a TPU-only cluster) must cost the slowest single
+        chain, not the sum of every chain's timeouts. A provider with no
+        source reads ``workload_available=False``.
+
+        Change detection: the refetched results are fingerprint-compared
+        to the previous tick's — (uid, resourceVersion) per object, not
+        a deep dict walk. Only a real difference marks the sync dirty
+        (see ``_changed``)."""
+        sourced = [
+            (p, self._sources[p.name]) for p in self._providers if p.name in self._sources
+        ]
+        for p in self._providers:
+            if p.name not in self._sources:
+                self._workload_available[p.name] = False
         # refresh() invalidates the snapshot unconditionally — skip the
         # fingerprint walks when nobody will read the verdict.
         before = self._imperative_fingerprint() if detect_changes else None
-        for provider in self._providers:
-            source = self._sources[provider.name]
+
+        def fetch_one(item: tuple[Provider, ProviderSource]) -> None:
+            provider, source = item
             self._fetch_workloads(provider, source)
             self._fetch_plugin_pods(provider, source)
+
+        # One chain runs inline; fanout.map joins its threads on return.
+        fanout.map(fetch_one, sourced, pool=pool_of(self._transport))
         if detect_changes and self._imperative_fingerprint() != before:
             self._changed = True
 

@@ -1,1 +1,3 @@
-"""Domain constants: GKE TPU resource names and node labels."""
+"""Pure domain layer: TPU + Intel GPU providers over plain k8s dicts."""
+
+from . import accelerator, constants, intel, objects, tpu  # noqa: F401

@@ -1,10 +1,10 @@
 """Provider-agnostic accelerator abstraction.
 
-The port's copy of ``headlamp_tpu/domain/accelerator.py`` with the TPU
-provider only: a Provider describes how to detect its nodes/pods and
+The port's copy of ``headlamp_tpu/domain/accelerator.py``, with both
+providers: Cloud TPU and Intel GPU coexist in one snapshot and degrade
+independently. A Provider describes how to detect its nodes/pods and
 count devices; ``classify_fleet`` partitions one cluster snapshot into
-per-provider views in a single pass. The Intel provider arrives with
-the Intel pages.
+per-provider views in a single pass.
 """
 
 from __future__ import annotations
@@ -12,13 +12,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Mapping
 
-from . import objects, tpu
+from . import intel, objects, tpu
 
 
 @dataclass(frozen=True)
 class Provider:
     """One accelerator family. ``device_unit`` is the display word for a
-    schedulable device ('chip' for TPU)."""
+    schedulable device ('chip' for TPU, 'device' for Intel GPU)."""
 
     name: str
     display_name: str
@@ -51,8 +51,23 @@ TPU_PROVIDER = Provider(
     pod_resource_test=lambda keys: tpu.TPU_RESOURCE in keys,
 )
 
-#: Registration order = sidebar/priority order.
-PROVIDERS: tuple[Provider, ...] = (TPU_PROVIDER,)
+INTEL_PROVIDER = Provider(
+    name="intel",
+    display_name="Intel GPU",
+    device_unit="device",
+    is_accel_node=intel.is_intel_gpu_node,
+    is_accel_pod=intel.is_gpu_requesting_pod,
+    is_plugin_pod=intel.is_intel_plugin_pod,
+    node_device_capacity=intel.get_node_gpu_count,
+    node_device_allocatable=intel.get_node_gpu_allocatable,
+    pod_device_request=intel.get_pod_device_request,
+    pod_resource_test=lambda keys: any(
+        k.startswith(intel.INTEL_GPU_RESOURCE_PREFIX) for k in keys
+    ),
+)
+
+#: Registration order = sidebar/priority order. TPU first by design.
+PROVIDERS: tuple[Provider, ...] = (TPU_PROVIDER, INTEL_PROVIDER)
 
 
 @dataclass

@@ -1,12 +1,13 @@
-"""Fleet fixture generators for the TPU configurations.
+"""Fleet fixture generators for the TPU and mixed configurations.
 
-The TPU fleets of ``headlamp_tpu/fleet/fixtures.py``, generated the same
+The fleets of ``headlamp_tpu/fleet/fixtures.py``, generated the same
 way (seeded, fixed clock), so the port and the JAX package see identical
 objects:
 
 - ``fleet_v5e4``   — GKE v5e-4 single-host node pool
 - ``fleet_v5p32``  — v5p-32 multi-host pod slice: 16 chips over 4 hosts
 - ``fleet_v5p32_degraded`` — the same slice after a host drop
+- ``fleet_mixed``  — Intel Arc dGPU nodes + v5e nodes in one cluster
 - ``fleet_large``  — deterministic 1024-node stress fleet
 - ``fleet_viewport`` — the drill-down fleet: TPU hosts in labelled
                      clusters of 32-host slices (16384 by default)
@@ -109,6 +110,36 @@ def make_plain_node(name: str, *, age_seconds: int = 3600 * 24) -> dict[str, Any
     }
 
 
+def make_intel_node(
+    name: str,
+    *,
+    gpus: int = 1,
+    discrete: bool = True,
+    ready: bool = True,
+    age_seconds: int = 3600 * 24,
+) -> dict[str, Any]:
+    labels = {"intel.feature.node.kubernetes.io/gpu": "true"}
+    if discrete:
+        labels["node-role.kubernetes.io/gpu"] = "true"
+    else:
+        labels["node-role.kubernetes.io/igpu"] = "true"
+    return {
+        "apiVersion": "v1",
+        "kind": "Node",
+        "metadata": {
+            "name": name,
+            "uid": f"uid-node-{name}",
+            "labels": labels,
+            "creationTimestamp": _ts(age_seconds),
+        },
+        "status": {
+            "capacity": {"cpu": "16", "memory": "64Gi", "gpu.intel.com/i915": str(gpus)},
+            "allocatable": {"cpu": "16", "memory": "62Gi", "gpu.intel.com/i915": str(gpus)},
+            "conditions": [{"type": "Ready", "status": "True" if ready else "False"}],
+        },
+    }
+
+
 def make_tpu_pod(
     name: str,
     *,
@@ -166,16 +197,59 @@ def make_tpu_pod(
     }
 
 
+def make_intel_pod(
+    name: str,
+    *,
+    namespace: str = "default",
+    node: str | None = None,
+    gpus: int = 1,
+    phase: str = "Running",
+    age_seconds: int = 3600,
+) -> dict[str, Any]:
+    return {
+        "apiVersion": "v1",
+        "kind": "Pod",
+        "metadata": {
+            "name": name,
+            "namespace": namespace,
+            "uid": f"uid-pod-{namespace}-{name}",
+            "creationTimestamp": _ts(age_seconds),
+        },
+        "spec": {
+            "nodeName": node,
+            "containers": [
+                {
+                    "name": "app",
+                    "resources": {
+                        "requests": {"gpu.intel.com/i915": str(gpus)},
+                        "limits": {"gpu.intel.com/i915": str(gpus)},
+                    },
+                }
+            ],
+        },
+        "status": {
+            "phase": phase,
+            "conditions": [{"type": "Ready", "status": "True" if phase == "Running" else "False"}],
+            "containerStatuses": [{"name": "app", "ready": phase == "Running", "restartCount": 0}],
+        },
+    }
+
+
 def make_plugin_pod(
     name: str,
     *,
+    provider: str = "tpu",
     node: str | None = None,
     ready: bool = True,
     restarts: int = 0,
     age_seconds: int = 3600 * 48,
 ) -> dict[str, Any]:
-    labels = {"k8s-app": "tpu-device-plugin"}
-    namespace = TPU_PLUGIN_NAMESPACE
+    if provider == "tpu":
+        labels = {"k8s-app": "tpu-device-plugin"}
+        namespace = TPU_PLUGIN_NAMESPACE
+    else:
+        labels = {"app": "intel-gpu-plugin"}
+        namespace = "inteldeviceplugins-system"
     return {
         "apiVersion": "v1",
         "kind": "Pod",
@@ -220,12 +294,47 @@ def make_plugin_daemonset(
     }
 
 
+def make_intel_crd(
+    name: str = "gpudeviceplugin-sample",
+    *,
+    desired: int = 1,
+    ready: int | None = None,
+    shared_dev_num: int = 1,
+    age_seconds: int = 3600 * 72,
+) -> dict[str, Any]:
+    """A GpuDevicePlugin CR shaped like the reference's domain model
+    (`src/api/k8s.ts:56-80`)."""
+    if ready is None:
+        ready = desired
+    return {
+        "apiVersion": "deviceplugin.intel.com/v1",
+        "kind": "GpuDevicePlugin",
+        "metadata": {
+            "name": name,
+            "uid": f"uid-crd-{name}",
+            "creationTimestamp": _ts(age_seconds),
+        },
+        "spec": {
+            "image": "intel/intel-gpu-plugin:0.30.0",
+            "sharedDevNum": shared_dev_num,
+            "preferredAllocationPolicy": "balanced",
+            "enableMonitoring": True,
+            "nodeSelector": {"intel.feature.node.kubernetes.io/gpu": "true"},
+        },
+        "status": {
+            "desiredNumberScheduled": desired,
+            "numberReady": ready,
+        },
+    }
+
+
 def fleet_transport(fleet: dict[str, Any]) -> MockTransport:
     """MockTransport serving a fixture fleet on the URL surface the
     dashboard lists: the node and pod lists as watchable lists (limit /
     continue pagination plus the watch-delta protocol; their feeds are
     ``t.node_feed`` and ``t.pod_feed``, for scenarios that mutate the
-    fleet mid-run) and the TPU device-plugin daemonsets."""
+    fleet mid-run), the TPU device-plugin daemonsets and, where the
+    fleet has them, the Intel GpuDevicePlugin CRs."""
     t = MockTransport()
     t.node_feed = t.add_watchable_list("/api/v1/nodes", fleet["nodes"])
     t.pod_feed = t.add_watchable_list("/api/v1/pods", fleet["pods"])
@@ -233,6 +342,11 @@ def fleet_transport(fleet: dict[str, Any]) -> MockTransport:
         "/apis/apps/v1/daemonsets?labelSelector=k8s-app%3Dtpu-device-plugin",
         {"kind": "List", "items": fleet.get("daemonsets", [])},
     )
+    if "gpudeviceplugins" in fleet:
+        t.add(
+            "/apis/deviceplugin.intel.com/v1/gpudeviceplugins",
+            {"kind": "List", "items": fleet["gpudeviceplugins"]},
+        )
     return t
 
 
@@ -299,6 +413,37 @@ def fleet_v5p32_degraded() -> dict[str, Any]:
                 if c.get("type") == "Ready":
                     c["status"] = "False"
     return fleet
+
+
+def fleet_mixed() -> dict[str, Any]:
+    """Intel Arc dGPU nodes + v5e nodes in one cluster."""
+    tpu_nodes = [
+        make_tpu_node(
+            f"gke-v5e16-pool-w{i}", pool="v5e16-pool",
+            accelerator="tpu-v5-lite-podslice", topology="4x4", chips=4,
+        )
+        for i in range(4)
+    ]
+    intel_nodes = [
+        make_intel_node("arc-node-1", gpus=2),
+        make_intel_node("arc-node-2", gpus=1, discrete=True, ready=False),
+    ]
+    pods = [
+        make_tpu_pod("llm-shard-0", namespace="ml", node=tpu_nodes[0]["metadata"]["name"], chips=4),
+        make_tpu_pod("llm-shard-1", namespace="ml", node=tpu_nodes[1]["metadata"]["name"], chips=4),
+        make_intel_pod("transcode-1", node="arc-node-1", gpus=1),
+        make_intel_pod("transcode-2", node="arc-node-1", gpus=1, phase="Pending"),
+    ]
+    plugins = [
+        make_plugin_pod("tpu-device-plugin-a", node=tpu_nodes[0]["metadata"]["name"]),
+        make_plugin_pod("intel-gpu-plugin-a", provider="intel", node="arc-node-1"),
+    ]
+    return {
+        "nodes": tpu_nodes + intel_nodes + [make_plain_node("gke-default-pool-m1")],
+        "pods": pods + plugins,
+        "daemonsets": [make_plugin_daemonset(desired=4)],
+        "gpudeviceplugins": [make_intel_crd(desired=2)],
+    }
 
 
 def fleet_large(n_nodes: int = 1024, seed: int = 42) -> dict[str, Any]:

@@ -11,6 +11,7 @@ and plays one back as a transport (:class:`ReplaySource`).
 """
 
 from .record import (
+    RECORDING_VERSION,
     Exchange,
     Recorder,
     Recording,
@@ -21,6 +22,7 @@ from .record import (
 from .store import HistoryStore, active_store, set_active_store
 
 __all__ = [
+    "RECORDING_VERSION",
     "Exchange",
     "HistoryStore",
     "Recorder",

@@ -13,11 +13,15 @@ from .forecast import (
     ForecastMLP,
     InferenceDispatch,
     WarmState,
+    fit_and_forecast,
     fit_and_forecast_incremental,
     fit_and_forecast_with_dispatch,
+    forecast_next,
+    forecast_next_with_dispatch,
     forward,
     init_params,
     loss_fn,
+    make_train_step,
     make_windows,
     synthetic_telemetry,
 )
@@ -28,11 +32,15 @@ __all__ = [
     "ForecastMLP",
     "InferenceDispatch",
     "WarmState",
+    "fit_and_forecast",
     "fit_and_forecast_incremental",
     "fit_and_forecast_with_dispatch",
+    "forecast_next",
+    "forecast_next_with_dispatch",
     "forward",
     "init_params",
     "loss_fn",
+    "make_train_step",
     "make_windows",
     "synthetic_telemetry",
 ]

@@ -478,6 +478,32 @@ def _infer_recent(
     return forecast_forward(params, recent)
 
 
+def forecast_next_with_dispatch(
+    params: Params, recent: Any, cfg: ForecastConfig | None = None, *, device: DeviceLike = None
+) -> tuple[torch.Tensor, InferenceDispatch]:
+    """Inference alone: [n_chips, window] recent samples -> ([n_chips,
+    horizon] predicted utilization on the device, dispatch record). The
+    fused CUDA kernel serves it on a CUDA device and its plain version on
+    the CPU; nothing falls back, so the record's ``fallback_reason`` is
+    always None. ``cfg`` is taken for the JAX signature: the widths come
+    from ``params``."""
+    del cfg
+    dev = resolve_device(device)
+    x = _as_series(recent, dev).clone(memory_format=torch.contiguous_format)
+    from .fused_forward import forecast_forward
+
+    return forecast_forward(_on(params, dev), x), InferenceDispatch(_inference_path(dev))
+
+
+def forecast_next(
+    params: Params, recent: Any, cfg: ForecastConfig | None = None, *, device: DeviceLike = None
+) -> torch.Tensor:
+    """:func:`forecast_next_with_dispatch` without the record, for
+    callers that only want the numbers."""
+    out, _ = forecast_next_with_dispatch(params, recent, cfg, device=device)
+    return out
+
+
 def fetch_host(preds: torch.Tensor, mse: torch.Tensor) -> tuple[np.ndarray, float]:
     """Predictions and the fit MSE to the host in ONE device copy,
     through the transfer funnel, which counts it."""
@@ -510,6 +536,19 @@ def fit_and_forecast_with_dispatch(
     params, _, mse = _train(x, y, params, adam_init(params), cfg, steps)
     out = _infer_recent(params, series, cfg)
     return out, InferenceDispatch(_inference_path(dev), fit_mse=mse)
+
+
+def fit_and_forecast(
+    series: Any,
+    cfg: ForecastConfig | None = None,
+    *,
+    steps: int = 60,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """:func:`fit_and_forecast_with_dispatch` without the record."""
+    out, _ = fit_and_forecast_with_dispatch(series, cfg, steps=steps, seed=seed, device=device)
+    return out
 
 
 # ---------------------------------------------------------------------------

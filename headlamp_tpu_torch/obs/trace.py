@@ -17,11 +17,17 @@ it off.
 Span durations come from ``time.perf_counter``; each trace carries one
 wall-clock ``started_at``, passed in through ``trace_request``'s
 ``wall`` seam, for display only.
+
+``HEADLAMP_TPU_TRACING=0`` turns capture off at startup, as in JAX, and
+:func:`set_tracing` turns it on and off at run time (a benchmark's
+tracing-on/off delta): with it off no trace is ever active, so every
+span is a no-op.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -30,6 +36,18 @@ from typing import Any, Callable
 
 #: Completed traces retained for /debug/traces, oldest dropped first.
 TRACE_RING_CAPACITY = 64
+
+#: The capture switch, read once from the environment at import.
+_enabled = os.environ.get("HEADLAMP_TPU_TRACING", "1").lower() not in ("0", "false")
+
+
+def set_tracing(on: bool) -> None:
+    global _enabled
+    _enabled = on
+
+
+def tracing_enabled() -> bool:
+    return _enabled
 
 
 class Span:
@@ -173,7 +191,8 @@ def _span_dict(s: Span, t0: float) -> dict[str, Any]:
 class trace_request:
     """Install a fresh trace for the calling context. Yields the Trace,
     or None when the caller opted out (``enabled=False``: health and
-    metrics probes stay out of the ring) or a trace is already active.
+    metrics probes stay out of the ring), tracing is switched off
+    (:func:`set_tracing`) or a trace is already active.
     ``wall`` supplies the display-only ``started_at`` stamp;
     ``remote_parent`` is the 16-hex trace id parsed from an inbound
     ``traceparent`` header (``obs/propagate.py``)."""
@@ -197,7 +216,7 @@ class trace_request:
         self._trace: Trace | None = None
 
     def __enter__(self) -> Trace | None:
-        if not self._enabled or _ACTIVE.get() is not None:
+        if not (_enabled and self._enabled) or _ACTIVE.get() is not None:
             return None
         trace = Trace(self._path, started_at=self._wall(), remote_parent=self._remote_parent)
         self._trace = trace
@@ -232,9 +251,33 @@ class TraceRing:
         with self._lock:
             return list(reversed(self._traces))
 
+    def clear(self) -> None:
+        with self._lock:
+            self._traces.clear()
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._traces)
+
+    def memory_bytes(self) -> int:
+        """Recursive shallow-size sum over the retained traces, so the
+        retention cost is measured, not assumed."""
+        seen: set[int] = set()
+
+        def size(obj: Any) -> int:
+            if id(obj) in seen:
+                return 0
+            seen.add(id(obj))
+            total = sys.getsizeof(obj)
+            if isinstance(obj, dict):
+                total += sum(size(k) + size(v) for k, v in obj.items())
+            elif isinstance(obj, (list, tuple)):
+                total += sum(size(item) for item in obj)
+            return total
+
+        with self._lock:
+            traces = list(self._traces)
+        return sum(size(t) for t in traces)
 
 
 #: Process-wide ring: one server, one recent-request debug surface.

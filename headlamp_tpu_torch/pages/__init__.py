@@ -2,7 +2,7 @@
 Fleet (the drill-down), Nodes, Pods, DevicePlugins, Topology, Metrics
 and Trends (a function of the history store's view, not of a snapshot),
 as in the JAX package; the native node and pod views are in
-``native``."""
+``native``, the five Intel GPU pages in ``intel``."""
 
 from .device_plugins import device_plugins_page
 from .metrics_page import metrics_page

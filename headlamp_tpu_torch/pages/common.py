@@ -231,21 +231,28 @@ def cursor_controls(
 
 def plugin_not_detected_box(state: ProviderState) -> Element:
     """Install guidance when no plugin evidence exists
-    (`OverviewPage.tsx:171-196` shows a Helm hint; the TPU guidance
-    points at GKE node-pool creation, which installs the device plugin
-    automatically). Pure function of the provider's display name — built
-    once, not per paint (elements are immutable, so sharing the tree is
-    safe)."""
-    return _plugin_not_detected_box(state.provider.display_name)
+    (`OverviewPage.tsx:171-196` shows the Helm hint for Intel; the TPU
+    guidance points at GKE node-pool creation, which installs the
+    device plugin automatically). Pure function of the provider's
+    (name, display_name) — built once per provider, not per paint
+    (elements are immutable, so sharing the tree is safe)."""
+    return _plugin_not_detected_box(state.provider.name, state.provider.display_name)
 
 
 @functools.lru_cache(maxsize=16)
-def _plugin_not_detected_box(display_name: str) -> Element:
-    hint = (
-        "TPU device plugin not detected. On GKE, create a TPU node pool "
-        "(gcloud container node-pools create --machine-type=ct5lp-hightpu-4t …); "
-        "the device plugin DaemonSet is installed automatically in kube-system."
-    )
+def _plugin_not_detected_box(name: str, display_name: str) -> Element:
+    if name == "tpu":
+        hint = (
+            "TPU device plugin not detected. On GKE, create a TPU node pool "
+            "(gcloud container node-pools create --machine-type=ct5lp-hightpu-4t …); "
+            "the device plugin DaemonSet is installed automatically in kube-system."
+        )
+    else:
+        hint = (
+            "Intel GPU device plugin not detected. Install it with Helm: "
+            "helm install intel-device-plugins-operator "
+            "intel/intel-device-plugins-operator"
+        )
     return h(
         "div",
         {"class_": "hl-notice hl-plugin-missing"},

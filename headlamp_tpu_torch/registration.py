@@ -4,7 +4,7 @@ column processors the host serves.
 The port's counterpart of ``headlamp_tpu/registration.py``, with the
 same ``SidebarEntry``, ``Route``, ``DetailSection``, ``ColumnsProcessor``
 and ``Registry`` types. :func:`register_plugin` registers, in the JAX
-order (`registration.py:130-191`), the TPU half of the surface: the
+order (`registration.py:130-191`), the TPU surface: the
 Overview at ``/tpu``, the Fleet drill-down at ``/tpu/fleet``, Nodes,
 Workloads, Device Plugin, Topology, Metrics and Trends (``/tpu/trends``,
 painted from the host's history store), the native nodes table at
@@ -15,8 +15,11 @@ columns processor, then the telemetry pages: the trace waterfall
 profiler's flame view (``/debug/profilez/html``), the generation
 timeline (``/debug/generationz/html``) and the incident timeline
 (``/debug/incidentz/html``), registered routes outside the sidebar as in
-JAX. The Intel pages are not registered, so the host answers them with a
-404 and never with a stand-in page.
+JAX. Beside the TPU half it registers the Intel GPU half, as JAX does:
+the Intel sidebar under :data:`INTEL_SIDEBAR_ROOT`, its five routes
+(``/intel``, ``/intel/nodes``, ``/intel/pods``, ``/intel/deviceplugins``
+and ``/intel/metrics``), the Intel Node and Pod detail sections and the
+Intel columns processor on the native nodes table.
 """
 
 from __future__ import annotations
@@ -24,7 +27,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
-from .integrations import build_node_tpu_columns, node_detail_section, pod_detail_section
+from .integrations import (
+    build_node_intel_columns,
+    build_node_tpu_columns,
+    intel_node_detail_section,
+    intel_pod_detail_section,
+    node_detail_section,
+    pod_detail_section,
+)
 from .obs.debug_pages import (
     generations_page,
     incidents_page,
@@ -41,6 +51,13 @@ from .pages import (
     topology_page,
     trends_page,
     viewport_page,
+)
+from .pages.intel import (
+    intel_device_plugins_page,
+    intel_metrics_page,
+    intel_nodes_page,
+    intel_overview_page,
+    intel_pods_page,
 )
 from .pages.native import native_nodes_page
 
@@ -107,13 +124,17 @@ class Registry:
         return [s for s in self.detail_sections if s.resource_kind == resource_kind]
 
 
-#: The sidebar root the entries hang under, as in the JAX package.
+#: The sidebar roots the entries hang under, as in the JAX package. TPU
+#: first by design (accelerator.PROVIDERS order); Intel is the
+#: compatibility provider carrying the reference plugin's full surface.
 SIDEBAR_ROOT = "tpu"
+INTEL_SIDEBAR_ROOT = "intel"
 
 
 def register_plugin(registry: Registry | None = None) -> Registry:
     """Populate a registry with the pages, sections and columns this
-    package renders."""
+    package renders, for both providers (each section and column set
+    null-guards the other provider's resources)."""
     reg = registry if registry is not None else Registry()
     reg.sidebar_entries.extend(
         [
@@ -128,6 +149,15 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             SidebarEntry("tpu-topology", "Topology", "/tpu/topology", parent=SIDEBAR_ROOT),
             SidebarEntry("tpu-metrics", "Metrics", "/tpu/metrics", parent=SIDEBAR_ROOT),
             SidebarEntry("tpu-trends", "Trends", "/tpu/trends", parent=SIDEBAR_ROOT),
+            SidebarEntry(INTEL_SIDEBAR_ROOT, "Intel GPU", "/intel", parent=None),
+            SidebarEntry("intel-overview", "Overview", "/intel", parent=INTEL_SIDEBAR_ROOT),
+            SidebarEntry("intel-nodes", "Nodes", "/intel/nodes", parent=INTEL_SIDEBAR_ROOT),
+            SidebarEntry("intel-pods", "Workloads", "/intel/pods", parent=INTEL_SIDEBAR_ROOT),
+            SidebarEntry(
+                "intel-deviceplugins", "Device Plugins", "/intel/deviceplugins",
+                parent=INTEL_SIDEBAR_ROOT,
+            ),
+            SidebarEntry("intel-metrics", "Metrics", "/intel/metrics", parent=INTEL_SIDEBAR_ROOT),
             # The host's own native surface: the nodes table the column
             # processors extend.
             SidebarEntry("cluster", "Cluster", "/nodes", parent=None),
@@ -149,6 +179,11 @@ def register_plugin(registry: Registry | None = None) -> Registry:
             # the store's windowed view instead of a cluster snapshot, so
             # it paints while the sync is the thing under investigation.
             Route("/tpu/trends", "tpu-trends", trends_page, kind="trends"),
+            Route("/intel", "intel-overview", intel_overview_page),
+            Route("/intel/nodes", "intel-nodes", intel_nodes_page, paged=True),
+            Route("/intel/pods", "intel-pods", intel_pods_page),
+            Route("/intel/deviceplugins", "intel-deviceplugins", intel_device_plugins_page),
+            Route("/intel/metrics", "intel-metrics", intel_metrics_page, kind="intel-metrics"),
             Route(
                 "/nodes", "cluster-nodes", native_nodes_page, kind="native-nodes", paged=True
             ),
@@ -172,7 +207,10 @@ def register_plugin(registry: Registry | None = None) -> Registry:
         [
             DetailSection("Node", node_detail_section),
             DetailSection("Pod", pod_detail_section),
+            DetailSection("Node", intel_node_detail_section),
+            DetailSection("Pod", intel_pod_detail_section),
         ]
     )
     reg.columns_processors.append(ColumnsProcessor("headlamp-nodes", build_node_tpu_columns))
+    reg.columns_processors.append(ColumnsProcessor("headlamp-nodes", build_node_intel_columns))
     return reg

@@ -1,7 +1,7 @@
 """Entry point: ``python -m headlamp_tpu_torch.server``.
 
 Modes:
-- ``--demo [v5e4|v5p32|large|…]`` — a demo fleet, no cluster (the
+- ``--demo [v5e4|v5p32|mixed|large]`` — a demo fleet, no cluster (the
   default, ``v5p32``, when no other mode is given);
 - ``--apiserver URL`` — a real apiserver (``http://127.0.0.1:8001`` behind
   ``kubectl proxy``), over a pooled keep-alive ``KubeTransport``;

@@ -121,8 +121,10 @@ the scenario engine (``scenarios/``) marks its injections and phases on
 it, and the generation ledger's leadership transitions are merged into
 it; ``/healthz`` carries ``runtime.scenarios`` only while a drill runs.
 On a worker process (``workers/``) ``/healthz`` carries the shared status
-board as ``runtime.workers``. The Intel pages are not part of this host;
-``/healthz`` leaves out the JAX host's keys that describe them.
+board as ``runtime.workers``. The host serves both providers, as JAX's
+does: the five Intel GPU pages under ``/intel`` (``/intel/metrics``
+fetches the i915 power series from Prometheus on each paint), the Intel
+columns on ``/nodes`` and the Intel sections on the node and pod views.
 """
 
 from __future__ import annotations
@@ -148,6 +150,7 @@ from ..device import DeviceLike, resolve_device
 from ..gateway import RenderGateway, degraded_active, set_active
 from ..history import HistoryStore, set_active_store
 from ..metrics.client import TpuMetricsSnapshot, fetch_tpu_metrics
+from ..metrics.intel_client import fetch_intel_gpu_metrics
 from ..models import aot
 from ..models.fused_forward import LAUNCHES, kernel_build_info
 from ..models.service import ForecastView, compute_forecast_incremental
@@ -1059,10 +1062,17 @@ class DashboardApp:
         if route.kind == "metrics":
             with span("page.data", kind=route.kind):
                 metrics, forecast = self._metrics_and_forecast()
+        elif route.kind == "intel-metrics":
+            # Fetched on every paint, as in JAX: the Intel page keeps no
+            # metrics cache.
+            with span("page.data", kind=route.kind):
+                intel_metrics = fetch_intel_gpu_metrics(self._transport, clock=self._clock)
         paint = self._fragment_paint(route_path)
         with span("page.component", kind=route.kind):
             if route.kind == "metrics":
                 el = route.component(metrics, forecast)
+            elif route.kind == "intel-metrics":
+                el = route.component(intel_metrics)
             elif route.kind == "topology":
                 # Cache PEEK only: the heatmap must never pay the
                 # Prometheus chain.

@@ -1,9 +1,11 @@
 """Demo mode: fixture fleets with synthetic Prometheus data.
 
-The TPU part of ``headlamp_tpu/server/app.py``'s demo mode — the
+The port of ``headlamp_tpu/server/app.py``'s demo mode — the
 zero-cluster path for demos, verification and the chip smoke run. The
-series are the same deterministic functions of the fleet as the JAX
-package's, so both packages serve identical metrics for a fleet. Also
+series (TPU utilization and HBM, and the i915 hwmon power series of a
+fleet's Intel nodes) are the same deterministic functions of the fleet
+as the JAX package's, so both packages serve identical metrics for a
+fleet. Also
 the mode flags the server and the CLI share: a demo fleet, or a real
 apiserver over ``KubeTransport``.
 """
@@ -15,14 +17,17 @@ import math
 import urllib.parse
 from typing import Any
 
+from ..domain.intel import is_intel_gpu_node
 from ..fleet import fixtures as fx
 from ..metrics.client import LOGICAL_METRICS, NODE_MAP_QUERY, batched_instant_queries
+from ..metrics.intel_client import INTEL_QUERIES
 from ..transport.api_proxy import KubeTransport, MockTransport, Transport
 
 #: Demo fleet name -> fixture generator.
 DEMO_FLEETS = {
     "v5e4": fx.fleet_v5e4,
     "v5p32": fx.fleet_v5p32,
+    "mixed": fx.fleet_mixed,
     "large": lambda: fx.fleet_large(1024),
 }
 
@@ -50,8 +55,9 @@ def _vec(values: list[tuple[dict, float]]) -> dict:
 def add_demo_prometheus(t: MockTransport, fleet: dict[str, Any]) -> MockTransport:
     """Wire synthetic Prometheus (instant + range queries) for a fixture
     fleet onto an existing transport: utilization and HBM series for the
-    first 64 TPU hosts' chips, and a utilization history for the first
-    16 hosts' chips on exactly the requested grid."""
+    first 64 TPU hosts' chips, a utilization history for the first 16
+    hosts' chips on exactly the requested grid, and one i915 card per
+    Intel node (power, TDP and the instance→node map)."""
 
     def q(promql: str) -> str:
         return f"{_PROM}/query?query={urllib.parse.quote(promql, safe='')}"
@@ -71,6 +77,24 @@ def add_demo_prometheus(t: MockTransport, fleet: dict[str, Any]) -> MockTranspor
             used.append((labels, (8 + (i + chip) % 7) * GIB))
             total.append((labels, 16 * GIB))
     t.add(q("1"), {"status": "success", "data": {"resultType": "scalar", "result": [0, "1"]}})
+
+    # Intel i915 hwmon series for any Intel nodes in the fleet (the
+    # reference's own metric surface, metrics.ts:101-116).
+    intel_nodes = [n["metadata"]["name"] for n in fleet["nodes"] if is_intel_gpu_node(n)]
+    uname: list[tuple[dict, float]] = []
+    if intel_nodes:
+        chips_s, power_s, tdp_s = [], [], []
+        for i, node in enumerate(intel_nodes):
+            instance = f"10.1.0.{i + 1}:9100"
+            uname.append(({"instance": instance, "nodename": node}, 1))
+            labels = {"instance": instance, "chip": "card0", "chip_name": "i915"}
+            chips_s.append((labels, 1))
+            power_s.append((labels, 18.5 + 3 * i))
+            tdp_s.append((labels, 120.0))
+        t.add(q(INTEL_QUERIES["node_map"]), _vec(uname))
+        t.add(q(INTEL_QUERIES["chips"]), _vec(chips_s))
+        t.add(q(INTEL_QUERIES["power"]), _vec(power_s))
+        t.add(q(INTEL_QUERIES["tdp"]), _vec(tdp_s))
     t.add(q("tensorcore_utilization"), _vec(util))
     t.add(q("hbm_bytes_used"), _vec(used))
     t.add(q("hbm_bytes_total"), _vec(total))
@@ -83,7 +107,7 @@ def add_demo_prometheus(t: MockTransport, fleet: dict[str, Any]) -> MockTranspor
         "tensorcore_utilization": util,
         "hbm_bytes_used": used,
         "hbm_bytes_total": total,
-        NODE_MAP_QUERY: [],
+        NODE_MAP_QUERY: uname,
     }
     batchable = [NODE_MAP_QUERY]
     for candidates in LOGICAL_METRICS.values():

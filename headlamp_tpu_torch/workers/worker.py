@@ -159,9 +159,10 @@ class ShmConsumer:
     def _seed_columns(self, columns: dict[str, Any], generation: int) -> None:
         """Upload the segment's columns into the worker's own fleet cache
         at the version ``decode_snapshot`` stamped (the generation), so
-        the first render of it finds them on the card. Only the providers
-        the applied snapshot has: a JAX leader's segment also carries its
-        Intel columns, which no port page reads."""
+        the first render of it finds them on the card. Every provider the
+        applied snapshot has is seeded, Intel included, as JAX's worker
+        seeds them: a segment's columns for a provider the snapshot lacks
+        are skipped."""
         cache = self.app._ctx.fleet_cache
         providers = self.app._last_snapshot.providers
         columns = {name: fleet for name, fleet in columns.items() if name in providers}

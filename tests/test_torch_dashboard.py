@@ -119,7 +119,7 @@ def test_refresh_unregistered_and_healthz():
     assert health["loading"] and health["analytics"]["calibrated"] is False
     assert app.handle("/refresh?back=/tpu")[:2] == (302, "/tpu")
     assert app.handle("/refresh?back=//evil.example")[:2] == (302, "/tpu")
-    assert app.handle("/intel")[0] == 404
+    assert app.handle("/tpu/no-such-page")[0] == 404
     # The telemetry pages paint from their own snapshots: no sync either.
     for path in ("/debug/generationz/html", "/debug/traces/html", "/sloz/html",
                  "/debug/incidentz/html"):
@@ -128,6 +128,10 @@ def test_refresh_unregistered_and_healthz():
     assert json.loads(app.handle("/healthz")[2])["loading"]
 
     assert app.handle("/tpu")[0] == 200
+    # The Intel pages are registered, as in JAX: served from the same
+    # synced snapshot (the large fleet has no Intel node).
+    status, _, body = app.handle("/intel")
+    assert status == 200 and "Intel GPU Plugin Not Detected" in body
     health = json.loads(app.handle("/healthz")[2])
     assert health["nodes"] == 1024 and not health["loading"] and health["errors"] == []
     analytics = health["analytics"]

@@ -9,10 +9,10 @@ fragment cache), both apps syncing on every request so the generations
 their cursors carry advance together. So are ``/node/<name>`` (a TPU
 node, a plain node, an unknown node — 404 on both hosts) and
 ``/pod/<namespace>/<name>`` at ``fleet_large(1024)`` and ``fleet_v5p32``.
-The JAX host's ``/nodes`` also carries the Intel columns, so the port's
-``native_nodes_page`` is held to JAX ``native_nodes_page`` given a JAX
-registry with the TPU columns processor only. Then the route labels, the
-``/refresh`` allowlist and the ``cluster-nodes`` CLI page.
+The port's ``native_nodes_page`` with its own registry (the TPU and the
+Intel columns) is held to JAX ``native_nodes_page`` with JAX's full
+registry. Then the route labels, the ``/refresh`` allowlist and the
+``cluster-nodes`` CLI page.
 """
 
 import re
@@ -24,7 +24,6 @@ from headlamp_tpu import cli as jax_cli
 from headlamp_tpu import registration as jax_reg
 from headlamp_tpu.context import AcceleratorDataContext as JaxContext
 from headlamp_tpu.fleet import fixtures as jfx
-from headlamp_tpu.integrations import build_node_tpu_columns as jax_tpu_columns
 from headlamp_tpu.pages import native as jax_native
 from headlamp_tpu.runtime import device_cache as jax_device_cache
 from headlamp_tpu.server import DashboardApp as JaxApp
@@ -161,14 +160,13 @@ def snapshots():
 @pytest.mark.parametrize("paging", [{}, {"page": 2}, {"query": "v5p-pool"}])
 def test_native_nodes_page_matches_jax_with_the_tpu_columns(snapshots, paging):
     jsnap, tsnap = snapshots
-    jax_registry = jax_reg.Registry(
-        columns_processors=[jax_reg.ColumnsProcessor("headlamp-nodes", jax_tpu_columns)]
-    )
+    jax_registry = jax_reg.register_plugin()
     want = jax_render_html(jax_native.native_nodes_page(
         jsnap, now=CLOCK, registry=jax_registry, **paging))
     got = render_html(native_nodes_page(tsnap, now=CLOCK, registry=register_plugin(), **paging))
     assert got == want
     assert "<th>TPU Type</th><th>TPU Chips</th><th>TPU Topology</th>" in got
+    assert "<th>GPU Type</th><th>GPU Devices</th>" in got
     if paging:
         assert ("page 2 of" if "page" in paging else "matching “v5p-pool”") in got
 
@@ -190,9 +188,7 @@ def test_route_labels_refresh_allowlist_and_cli_match_jax():
 
     text = render_page("cluster-nodes", make_demo_transport("large"), clock=clock, device="cpu")
     jsnap = JaxContext(jax_demo_transport("large"), clock=clock).sync()
-    jax_registry = jax_reg.Registry(
-        columns_processors=[jax_reg.ColumnsProcessor("headlamp-nodes", jax_tpu_columns)]
-    )
     assert text == jax_render_text(
-        jax_native.native_nodes_page(jsnap, now=CLOCK, registry=jax_registry))
+        jax_native.native_nodes_page(jsnap, now=CLOCK, registry=jax_reg.register_plugin()))
+    assert text == jax_cli.render_page("cluster-nodes", jax_demo_transport("large"), clock=clock)
     assert "cluster-nodes" in jax_cli.PAGES and "TPU Topology" in text

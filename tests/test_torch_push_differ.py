@@ -1,7 +1,8 @@
 """The port's push differ against the JAX package's, on the CPU.
 
-Each package syncs a snapshot of the same fixture fleet (TPU provider
-only; ``fleet_mixed`` waits for the port's Intel provider), and
+Each package syncs a snapshot of the same fixture fleet with both
+providers (``fleet_mixed`` carries Intel nodes and pods beside the TPU
+ones), and
 ``build_page_models`` must be JSON-equal across the packages, region
 models included. The same metrics and forecast peek objects (made from a
 seed with numpy) fill both metrics models. The same churn applied to both
@@ -19,7 +20,6 @@ import numpy as np
 import pytest
 
 from headlamp_tpu.context import AcceleratorDataContext as JaxContext
-from headlamp_tpu.domain import accelerator as jacc
 from headlamp_tpu.fleet import fixtures as jfx
 from headlamp_tpu.push import differ as jdiffer
 from headlamp_tpu_torch.context import AcceleratorDataContext
@@ -32,13 +32,12 @@ FLEETS = {
     "v5p32_degraded": lambda m: m.fleet_v5p32_degraded(),
     "large1024": lambda m: m.fleet_large(1024),
     "viewport1024": lambda m: m.fleet_viewport(1024),
+    "mixed": lambda m: m.fleet_mixed(),
 }
 
 
 def _snaps(jax_fleet, torch_fleet):
-    jctx = JaxContext(
-        jfx.fleet_transport(jax_fleet), providers=(jacc.TPU_PROVIDER,), clock=lambda: CLOCK
-    )
+    jctx = JaxContext(jfx.fleet_transport(jax_fleet), clock=lambda: CLOCK)
     tctx = AcceleratorDataContext(
         tfx.fleet_transport(torch_fleet), device="cpu", clock=lambda: CLOCK
     )
@@ -81,6 +80,9 @@ def test_page_models_equal_jax_on_every_fixture_fleet(fleet):
     assert _jsonable(got) == _jsonable(want)
     assert set(got) == set(want)
     regions = [k for k in got if k.startswith(tdiffer.REGION_PAGE_PREFIX)]
+    if fleet == "mixed":
+        # The Intel provider's overview cells are in the models.
+        assert any(k.startswith("intel.") for k in got["/tpu"]["cells"])
     if fleet == "viewport1024":
         # 8 clusters of 32-host slices: every cluster and slice has a model.
         assert len([r for r in regions if "/slice/" not in r]) == 8
@@ -120,7 +122,7 @@ def _churn(fleet, step):
     return fleet
 
 
-@pytest.mark.parametrize("fleet", ["v5p32", "viewport1024"])
+@pytest.mark.parametrize("fleet", ["v5p32", "viewport1024", "mixed"])
 def test_churn_frames_and_change_sets_equal_jax(fleet):
     base = FLEETS[fleet](tfx)
     metrics, forecast = _peeks(16, seed=1)

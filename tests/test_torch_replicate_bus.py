@@ -3,7 +3,8 @@ JAX's, on the CPU.
 
 On one fleet synced by each package's context, with the same metrics and
 forecast values, ``dumps_record(build_record(…))`` gives the same bytes
-in both packages (the provenance block and fresh scrape rows included),
+in both packages (the provenance block, both providers' blocks with the
+Intel one, and fresh scrape rows included),
 and both ``parse_payload`` gates refuse the same empty, foreign and
 future payloads with the same message. A JAX leader's payload applies on
 a port replica and a port leader's on a JAX replica: equal snapshots,
@@ -18,7 +19,6 @@ from __future__ import annotations
 import pytest
 
 from headlamp_tpu.context.accelerator_context import AcceleratorDataContext as JaxContext
-from headlamp_tpu.domain.accelerator import TPU_PROVIDER as JAX_TPU_PROVIDER
 from headlamp_tpu.fleet import fixtures as jfx
 from headlamp_tpu.metrics.client import TpuChipMetrics as JaxChip
 from headlamp_tpu.metrics.client import TpuMetricsSnapshot as JaxMetrics
@@ -81,25 +81,19 @@ def _forecast(view_cls, chip_cls):
                     data_source="history")
 
 
-def _tpu_only(encoded):
-    """An encoded snapshot with the TPU provider's block only: the port
-    has no Intel provider yet."""
-    return {**encoded, "providers": {"tpu": encoded["providers"]["tpu"]}}
-
-
 def _snapshots(fleet_name="fleet_v5p32"):
-    # JAX's context classifies for the TPU provider alone, as the port's does.
-    jctx = JaxContext(jfx.fleet_transport(getattr(jfx, fleet_name)()), clock=clock,
-                      providers=(JAX_TPU_PROVIDER,))
+    # Both contexts classify for both providers, TPU and Intel.
+    jctx = JaxContext(jfx.fleet_transport(getattr(jfx, fleet_name)()), clock=clock)
     tctx = AcceleratorDataContext(
         tfx.fleet_transport(getattr(tfx, fleet_name)()), device="cpu", clock=clock
     )
     return jctx.sync(), tctx.sync()
 
 
-@pytest.mark.parametrize("fleet_name", ["fleet_v5p32", "fleet_v5p32_degraded"])
+@pytest.mark.parametrize("fleet_name", ["fleet_v5p32", "fleet_v5p32_degraded", "fleet_mixed"])
 def test_records_equal_jax_byte_for_byte(fleet_name):
     jsnap, tsnap = _snapshots(fleet_name)
+    assert list(tsnap.providers) == list(jsnap.providers) == ["tpu", "intel"]
     jm, tm = _metrics(JaxMetrics, JaxChip), _metrics(TpuMetricsSnapshot, TpuChipMetrics)
     jf, tf = _forecast(JaxForecast, JaxChipForecast), _forecast(ForecastView, ChipForecast)
     obs = {"trace_id": "0123456789abcdef", "stages": {"synced": {"wall": CLOCK, "lag_ms": 1.5}}}
@@ -173,8 +167,9 @@ def test_payloads_cross_between_the_packages_and_apply():
     ]
     for leader, replica in pairs:
         assert replica.snapshot_generation() == leader.snapshot_generation() == 3
-        assert _tpu_only(trep.encode_snapshot(replica._last_snapshot)) == _tpu_only(
-            jrep.encode_snapshot(leader._last_snapshot))
+        assert trep.encode_snapshot(replica._last_snapshot) == jrep.encode_snapshot(
+            leader._last_snapshot)
+        assert set(trep.encode_snapshot(replica._last_snapshot)["providers"]) == {"tpu", "intel"}
         for metric in ("sync.generation", "sync.nodes", "sync.errors"):
             assert replica.history.series(metric)[1] == leader.history.series(metric)[1], metric
         assert replica.applied == 2 and replica.history.syncs == 2

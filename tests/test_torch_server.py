@@ -8,8 +8,8 @@ package's PRNGKey(0) init, so the two fit the same model. The page's
 ``perf_counter``); the forecasts, cold and after a warm background
 refit, agree to 1e-2 as in ``tests/test_torch_service.py``. A fit that
 raises is a 500 naming it on the request path and a counted, named
-refit error on the background path; an unported route is a 404 (and
-``/tpu/trends`` a 200, now that the history store is ported), ``/events``
+refit error on the background path; the Intel routes answer JAX's
+pages (and ``/tpu/trends`` a 200, now that the history store is ported), ``/events``
 answers an event stream over the socket (``?region=`` a region's), and
 ``/refresh`` returns home to the Overview.
 """
@@ -209,15 +209,22 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
 
 
 @pytest.mark.parametrize("path", ["/intel/nodes", "/intel/metrics", "/intel"])
-def test_unported_routes_are_404(path):
+def test_intel_routes_are_served_as_jax_serves_them(path, monkeypatch):
+    # The Intel pages are ported: on a TPU-only fleet they answer JAX's
+    # "not detected" pages byte for byte, under their own route label.
+    _pin_scrape_timer(monkeypatch)
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
+    japp = JaxApp(jax_demo_transport("v5e4"), clock=clock)
     status, ctype, body = app.handle(path)
-    assert (status, ctype) == (404, "text/html") and "No such page." in body
-    assert app._route_label(path) == "other"
-    # The trend page is registered now: served, with its own route label.
+    jstatus, jctype, jbody = japp.handle(path)
+    assert (status, ctype) == (jstatus, jctype) == (200, "text/html")
+    assert body.split("<main>")[1] == jbody.split("<main>")[1]
+    assert app._route_label(path) == japp._route_label(path) == path
+    # The trend page is registered too: served, with its own route label.
     status, ctype, body = app.handle("/tpu/trends")
     assert (status, ctype) == (200, "text/html") and "History store" in body
     assert app._route_label("/tpu/trends") == "/tpu/trends"
+    app.close()
 
 
 def test_events_answer_an_event_stream_and_a_region_stream(monkeypatch):
@@ -250,10 +257,14 @@ def test_events_answer_an_event_stream_and_a_region_stream(monkeypatch):
 def test_refresh_bumps_the_epoch_and_redirects_only_to_routes():
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     assert app.handle("/refresh?back=/tpu/metrics") == (302, "/tpu/metrics", "")
-    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/intel"):
+    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/gpu"):
         assert app.handle(f"/refresh?back={back}") == (302, "/tpu", "")
     assert app.handle("/refresh?back=/tpu/trends") == (302, "/tpu/trends", "")
-    assert app._cache_epoch == 6
+    # The Intel pages are routes now, as in JAX: /refresh returns to them.
+    japp = JaxApp(jax_demo_transport("v5e4"), clock=clock)
+    assert app.handle("/refresh?back=/intel") == japp.handle("/refresh?back=/intel") \
+        == (302, "/intel", "")
+    assert app._cache_epoch == 7
 
 
 def test_server_entry_point_needs_cuda_unless_asked_for_cpu(monkeypatch):

@@ -1,14 +1,15 @@
 """The port's list+watch protocol against the JAX package's, on the CPU.
 
 ``WatchFeed`` answers the same LISTs and watch deltas as JAX's after the
-same pushes and compactions. A port context and a JAX context (TPU
-provider only), each on its own package's fixture transport, are driven
+same pushes and compactions. A port context and a JAX context (both
+providers), each on its own package's fixture transport, are driven
 through one event script with watch on: steady-state deltas, MODIFIED in
 place, DELETED, BOOKMARK, 410 Gone, a non-410 ERROR event and a failing
 watch. After every sync each track's LIST and watch requests, the
 imperative requests, ``watch_stats``, the snapshot version and the
 store's object order are equal. The node track runs on a worker thread,
-so requests are compared per track, never as one merged list. Then the
+and the providers' chains run concurrently, so requests are compared per
+track and per provider, never as one merged list. Then the
 clean tick (same snapshot, no upload), an error transition, and the
 ``<main>`` bytes of ``/tpu``, ``/tpu/nodes`` and ``/tpu/fleet`` after a
 MODIFIED node and an ADDED pod against the JAX host's.
@@ -23,14 +24,13 @@ import pytest
 import torch
 
 from headlamp_tpu.context import AcceleratorDataContext as JaxContext
-from headlamp_tpu.domain import accelerator as jacc
 from headlamp_tpu.fleet import fixtures as jfx
 from headlamp_tpu.runtime import device_cache as jax_device_cache
 from headlamp_tpu.server import DashboardApp as JaxApp
 from headlamp_tpu.transport import ApiError as JaxApiError
 from headlamp_tpu.transport import MockTransport as JaxMock
 from headlamp_tpu.transport import WatchFeed as JaxFeed
-from headlamp_tpu_torch.context import AcceleratorDataContext
+from headlamp_tpu_torch.context import INTEL_SOURCE, TPU_SOURCE, AcceleratorDataContext
 from headlamp_tpu_torch.domain import objects as obj
 from headlamp_tpu_torch.fleet import fixtures as tfx
 from headlamp_tpu_torch.server import DashboardApp
@@ -118,7 +118,7 @@ def _contexts(fleet_name, *, watch):
     make = {"v5p32": ("fleet_v5p32", ()), "viewport": ("fleet_viewport", (256,))}[fleet_name]
     jt = jfx.fleet_transport(getattr(jfx, make[0])(*make[1]))
     tt = tfx.fleet_transport(getattr(tfx, make[0])(*make[1]))
-    jctx = JaxContext(jt, providers=(jacc.TPU_PROVIDER,), clock=clock, watch=watch)
+    jctx = JaxContext(jt, clock=clock, watch=watch)
     tctx = AcceleratorDataContext(tt, device="cpu", clock=clock, watch=watch)
     return (jctx, jt), (tctx, tt)
 
@@ -131,7 +131,20 @@ def _state(ctx, t, snap):
     return {
         "lists": {p: track(t.calls, p) for p in (NODES, PODS)},
         "watches": {p: track(t.watch_calls, p) for p in (NODES, PODS)},
-        "imperative": [c for c in t.calls if not c.startswith((NODES + "?", PODS + "?"))],
+        "imperative": {
+            source.provider_name: [
+                c for c in t.calls
+                if not c.startswith((NODES + "?", PODS + "?"))
+                and c in source.workload_paths + source.plugin_pod_paths
+            ]
+            for source in (TPU_SOURCE, INTEL_SOURCE)
+        },
+        "other": sorted(
+            c for c in t.calls
+            if not c.startswith((NODES + "?", PODS + "?"))
+            and c not in TPU_SOURCE.workload_paths + TPU_SOURCE.plugin_pod_paths
+            + INTEL_SOURCE.workload_paths + INTEL_SOURCE.plugin_pod_paths
+        ),
         "watch_stats": ctx.watch_stats,
         "version": state.view.version,
         "errors": snap.errors,

@@ -97,7 +97,8 @@ def test_the_segment_feed_applies_once_and_reports_the_worker_role(tmp_path):
         block = _health(rep)["runtime"]["replication"]
         assert block == consumer.snapshot()
         assert block["role"] == "worker" and block["segment_attached"] is True
-        assert block["seeds"] == 1 and block["seed_errors"] == 0 and block["stale"] is False
+        # One seed per provider, TPU and Intel, as JAX's worker seeds.
+        assert block["seeds"] == 2 and block["seed_errors"] == 0 and block["stale"] is False
         assert rep.handle("/tpu") == app.handle("/tpu")
     finally:
         rep.close()
@@ -132,7 +133,7 @@ def test_each_segment_rung_is_counted_named_and_the_bus_supplies_it(tmp_path, ru
             "corrupt_record": "JSONDecodeError"}[rung]
         assert rep.snapshot_generation() == app.snapshot_generation()
         if rung == "corrupt_record":
-            assert rep.snapshot_generation() > before and consumer.seeds == 1
+            assert rep.snapshot_generation() > before and consumer.seeds == 2
         assert rep.handle("/tpu") == app.handle("/tpu")
         assert _health(rep)["ok"] is True
     finally:
@@ -188,7 +189,7 @@ def test_the_seed_makes_the_first_render_encode_nothing(tmp_path, monkeypatch):
         assert rep._ctx.fleet_cache.counters() == {"hits": 2, "misses": 0, "uploads": 0}
         # Only the leader's paints encoded; the worker's encoded nothing.
         assert len(encodes) == app._ctx.fleet_cache.uploads
-        assert _health(rep)["runtime"]["fleet_cache"]["seeds"] == 1
+        assert _health(rep)["runtime"]["fleet_cache"]["seeds"] == 2
     finally:
         rep.close()
         app.close()
@@ -217,7 +218,7 @@ def test_a_seed_that_raises_installs_nothing_and_turns_ok_false(tmp_path, monkey
         assert rep.handle("/tpu") == app.handle("/tpu")  # a plain cache miss encodes
         assert _health(rep)["ok"] is False
         _bump(app)
-        assert consumer.poll_once() == 1 and consumer.seeds == 1
+        assert consumer.poll_once() == 1 and consumer.seeds == 2
         assert _health(rep)["ok"] is True and consumer.seed_errors == 1
     finally:
         rep.close()
@@ -320,8 +321,10 @@ def test_a_jax_leaders_segment_feeds_a_port_worker(tmp_path):
     consumer = ShmConsumer(worker, jseg.path)
     try:
         assert consumer.poll_once() == 1 and consumer.applied_shm == 1
-        # The Intel columns JAX also wrote are not seeded: no port page reads them.
-        assert set(worker._ctx.fleet_cache._entries) == {"tpu"} and consumer.seeds == 1
+        # Both providers' columns are seeded, Intel's included, as JAX's
+        # worker seeds them.
+        assert set(worker._ctx.fleet_cache._entries) == {"tpu", "intel"}
+        assert consumer.seeds == 2
         _, records = parse_payload(jpub.payload_after(0))
         assert all(replica.apply_record(r) for r in records)
         assert worker.snapshot_generation() == replica.snapshot_generation()

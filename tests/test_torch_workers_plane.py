@@ -1,6 +1,7 @@
 """The port's shared-memory snapshot plane against JAX's, on the CPU.
 
-``pack_fleet`` gives JAX's blob byte for byte for the same columns, and
+``pack_fleet`` gives JAX's blob byte for byte for the same columns (each
+provider's, the Intel view's included), and
 both packages' ``unpack_fleet`` refuse the same foreign, truncated and
 incomplete blobs. For one generation of one fleet the port's leader
 writes the segment JAX's leader writes, byte for byte over the written
@@ -28,7 +29,6 @@ import pytest
 from headlamp_tpu import workers as jworkers
 from headlamp_tpu.analytics.encode import encode_fleet as jax_encode_fleet
 from headlamp_tpu.context.accelerator_context import AcceleratorDataContext as JaxContext
-from headlamp_tpu.domain.accelerator import TPU_PROVIDER as JAX_TPU_PROVIDER
 from headlamp_tpu.fleet import fixtures as jfx
 from headlamp_tpu.runtime import columns as jcolumns
 from headlamp_tpu_torch import workers as tworkers
@@ -54,22 +54,26 @@ def _fleet(name):
 
 
 def _snapshots(name):
-    """One fleet synced by each package's context (JAX's for the TPU
-    provider alone, as the port's)."""
+    """One fleet synced by each package's context, both with the TPU and
+    the Intel provider."""
     make = _fleet(name)
-    jctx = JaxContext(jfx.fleet_transport(make(jfx)), clock=clock, providers=(JAX_TPU_PROVIDER,))
+    jctx = JaxContext(jfx.fleet_transport(make(jfx)), clock=clock)
     tctx = AcceleratorDataContext(tfx.fleet_transport(make(tfx)), device="cpu", clock=clock)
     return jctx.sync(), tctx.sync()
 
 
-def _columns(jsnap, tsnap):
-    jview, tview = jsnap.providers["tpu"].view, tsnap.providers["tpu"].view
+def _columns(jsnap, tsnap, provider="tpu"):
+    jview, tview = jsnap.providers[provider].view, tsnap.providers[provider].view
     return jax_encode_fleet(jview.nodes, jview.pods), encode_fleet(tview.nodes, tview.pods)
 
 
 @pytest.mark.parametrize("name", FLEETS)
 def test_pack_fleet_equals_jax_byte_for_byte(name):
-    jfleet, tfleet = _columns(*_snapshots(name))
+    jsnap, tsnap = _snapshots(name)
+    # The Intel view's packed columns too: a worker seeds them.
+    jintel, tintel = _columns(jsnap, tsnap, "intel")
+    assert tcolumns.pack_fleet(tintel) == jcolumns.pack_fleet(jintel)
+    jfleet, tfleet = _columns(jsnap, tsnap)
     blob = tcolumns.pack_fleet(tfleet)
     assert blob == jcolumns.pack_fleet(jfleet) and blob == tcolumns.pack_fleet(tfleet)
     assert tcolumns.COLUMNS_MAGIC == jcolumns.COLUMNS_MAGIC
@@ -115,7 +119,7 @@ def _publish_both(tmp_path, name, generation=7):
     return (jseg, jpub), (tseg, tpub), tsnap
 
 
-@pytest.mark.parametrize("name", FLEETS)
+@pytest.mark.parametrize("name", FLEETS + ("fleet_mixed",))
 def test_one_generations_segment_equals_jaxs_byte_for_byte(tmp_path, name):
     (jseg, jpub), (tseg, tpub), _ = _publish_both(tmp_path, name)
     try:
@@ -131,11 +135,14 @@ def test_one_generations_segment_equals_jaxs_byte_for_byte(tmp_path, name):
         tframe = tworkers.SegmentReader(jseg.path).read()
         assert tframe.record_line == jframe.record_line == tpub._backlog[-1][1]
         assert (tframe.generation, tframe.fencing) == (jframe.generation, jframe.fencing) == (7, 0)
-        assert set(tframe.columns) == set(jframe.columns) == {"tpu"}
-        for field in tcolumns.ARRAY_FIELDS:
-            got = getattr(tframe.columns["tpu"], field)
-            assert np.array_equal(got, getattr(jframe.columns["tpu"], field))
-            assert got.flags.writeable, field  # the frame owns a bytearray
+        assert set(tframe.columns) == set(jframe.columns) == {"tpu", "intel"}
+        for provider in ("tpu", "intel"):
+            for field in tcolumns.ARRAY_FIELDS:
+                got = getattr(tframe.columns[provider], field)
+                assert np.array_equal(got, getattr(jframe.columns[provider], field))
+                assert got.flags.writeable, field  # the frame owns a bytearray
+        if name == "fleet_mixed":
+            assert (tframe.columns["intel"].n_nodes, tframe.columns["intel"].n_pods) == (2, 2)
     finally:
         jseg.close()
         tseg.close()

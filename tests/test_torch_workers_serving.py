@@ -126,7 +126,8 @@ def test_workers_paint_the_leaders_bytes_and_fit_nothing(tmp_path):
                 assert rep.handle(path) == want, path
         assert "Utilization Forecast" in workers[0][0].handle("/tpu/metrics")[2]
         assert LAUNCHES.n == launches
-        assert all(c.applied_shm == 2 and c.seeds == 2 for _, c in workers)
+        # Two generations, each seeding both providers' columns.
+        assert all(c.applied_shm == 2 and c.seeds == 4 for _, c in workers)
     finally:
         _close(app, seg, workers)
 
