@@ -59,12 +59,16 @@ processes, with their saturation curves. Then the incident drills: the
 six scenario drills twice on the card and once on the CPU with
 byte-identical transcripts and timelines, and the live host's incident
 timeline through a page, a shed, a degraded render, an evicted stream and
-a restore. Last, the Intel GPU provider: the host at ``--demo mixed`` on the
+a restore. Then the Intel GPU provider: the host at ``--demo mixed`` on the
 card, its Intel pages, Intel columns and Intel sections byte for byte the
 same app's on the CPU; a mixed fleet of 16384 TPU and 512 Intel nodes whose
 TPU rollup on the card equals its oracle with no Intel node in the card's
 columns, the Intel provider's cost per sync tick and the Intel paints; and
-a bus replica and a segment worker painting the leader's Intel pages. It
+a bus replica and a segment worker painting the leader's Intel pages. Last,
+apps on the card closed while the program registry captures on its own
+thread, a capture held open across one close and a whole startup set
+beside a stream of them: every close returns, no capture fails, and the
+graphs replay what the eager program computes. It
 exits non-zero at the first failure, and without CUDA or without the
 package beside it.
 The last line is one JSON object:
@@ -100,6 +104,9 @@ HBM_BYTES_PER_S = 3.35e12
 
 #: Fixed wall clock for the demo's Prometheus range queries.
 FIXED_CLOCK = 1785283200.0
+
+#: Step 24's pause between two apps closed beside the startup capture.
+CAPTURE_CLOSE_PAUSE_S = 0.05
 
 #: Batches the kernel is held to its plain version at: the 64-row tiles'
 #: edges, the demo page's 64 chips and the at-scale forecast's 4096.
@@ -4431,6 +4438,159 @@ def intel_phase(torch: Any, smi: str) -> tuple[int, dict[str, Any]]:
     return launches, out
 
 
+def _rollup_columns(torch: Any, n: int) -> tuple[list[Any], Any]:
+    """The card's fleet columns of ``fleet_large(n)`` (uploaded by a
+    context of their own, closed) and their rollup bucket."""
+    from headlamp_tpu_torch.analytics import fleet_torch
+    from headlamp_tpu_torch.context import AcceleratorDataContext
+    from headlamp_tpu_torch.fleet import fleet_large, fleet_transport
+
+    with AcceleratorDataContext(fleet_transport(fleet_large(n)), device="cuda") as ctx:
+        view = ctx.sync().provider("tpu").view
+        fleet = ctx.fleet_cache.fleet_for(view)
+    torch.cuda.synchronize()
+    return [getattr(fleet, name) for name in fleet_torch.COLUMNS], fleet_torch.rollup_key(fleet)
+
+
+def _replay_against_eager(torch: Any, reg: Any, cols: list[Any], key: Any) -> float:
+    """The registry's fleet rollup graph at ``key`` replayed on ``cols``
+    against the eager program on the same columns: max abs difference."""
+    from headlamp_tpu_torch.models import aot
+
+    program = reg.executable(aot.FLEET_ROLLUP, key, cols[0].device)
+    check(isinstance(program, aot.GraphProgram), f"no captured fleet rollup at {key}: {program}")
+    replayed = reg.replay(aot.FLEET_ROLLUP, key, program, cols, lambda outs: outs[0].clone())
+    eager = aot._fleet_rollup_program(*cols)[0]
+    torch.cuda.synchronize()
+    return float((replayed - eager).abs().max())
+
+
+def close_during_capture_phase(torch: Any, clock: Callable[[], float], smi: str
+                               ) -> tuple[int, dict[str, Any]]:
+    """Step 24: ``DashboardApp.close()`` on the card while a startup capture
+    runs on the program registry's thread. (a) A fresh registry whose one
+    program, the fleet rollup at ``fleet_large(1024)``'s bucket, holds its
+    CUDA graph capture open until an app on the card, built and painted
+    (``/tpu``, an eager rollup) during it, has returned from ``close()``;
+    then the capture ends, the registry is ready with 0 capture errors,
+    and the graph's replay equals the eager program on the same columns.
+    (b) A fresh registry's whole startup set captured while apps at
+    ``--demo v5e4`` are built, painted and closed one after another, a
+    pause apart, until it is ready: every close returns, at least one while the capture runs,
+    0 capture errors, and the fleet rollup's replay equals its eager
+    program. No path here launches the kernel (warm-up and capture count
+    for none). Returns the launches and the numbers."""
+    from headlamp_tpu_torch.models import aot
+    from headlamp_tpu_torch.models.fused_forward import LAUNCHES
+    from headlamp_tpu_torch.obs import graphcost
+    from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+
+    t_step = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cols, key = _rollup_columns(torch, 1024)
+    out: dict[str, Any] = {}
+    LAUNCHES.reset()
+
+    # (a) One close held inside a capture.
+    in_capture, closed = threading.Event(), threading.Event()
+
+    def gated(*inputs: Any) -> Any:
+        outputs = aot._fleet_rollup_program(*inputs)
+        if torch.cuda.is_current_stream_capturing():
+            in_capture.set()
+            if not closed.wait(120.0):
+                raise SmokeFailure("no app closed during the capture in 120 s")
+        return outputs
+
+    def build_gated(bucket: Any, device: Any) -> Any:
+        node_shape, pod_shape = bucket
+        inputs = aot._columns(node_shape, 5, device) + aot._columns(pod_shape, 4, device)
+        return aot._program(gated, inputs)
+
+    build_rollup = aot._BUILDERS[aot.FLEET_ROLLUP]
+    aot._BUILDERS[aot.FLEET_ROLLUP] = build_gated
+    reg = aot.AotProgramRegistry(specs=[(aot.FLEET_ROLLUP, key)])
+    try:
+        with _Registry(reg, graphcost.GraphCostLedger()):
+            reg.compile_startup(dev)  # on the registry's thread, as serve() starts it
+            check(in_capture.wait(120.0), "the gated capture did not start in 120 s")
+            app = DashboardApp(make_demo_transport("large"), device="cuda", clock=clock)
+            try:
+                status = app.handle("/tpu")[0]
+            finally:
+                try:
+                    t0 = time.perf_counter()
+                    app.close()
+                    close_ms = (time.perf_counter() - t0) * 1e3
+                    state = reg.state
+                finally:
+                    closed.set()  # the capture goes on, whatever the close did
+            check(status == 200 and state == "compiling",
+                  f"/tpu during the capture: {status}; registry {state} at the close")
+            check(reg.wait_ready(120.0) and reg.join(60.0),
+                  "the gated capture did not finish in 120 s")
+            snap = reg.snapshot()
+            check(snap["state"] == "ready" and snap["compile_errors"] == 0
+                  and snap["last_error"] is None and snap["programs_compiled"] == 1,
+                  f"the registry after the gated capture: {snap}")
+            gated_err = _replay_against_eager(torch, reg, cols, key)
+    finally:
+        aot._BUILDERS[aot.FLEET_ROLLUP] = build_rollup
+    check(gated_err == 0.0, f"the gated graph's replay differs from eager by {gated_err}")
+    out["gated"] = {"close_ms": close_ms, "replay_vs_eager": gated_err}
+    print(f"capture-close: an app at --demo large painted /tpu (200) and closed in "
+          f"{close_ms:.1f} ms inside the fleet rollup's graph capture at {key} on the "
+          f"registry's thread; the capture then ended with 0 capture errors and its replay "
+          f"equals the eager program (max abs diff {gated_err}); on {smi}")
+
+    # (b) Closes beside the whole startup set.
+    reg = aot.AotProgramRegistry()
+    with _Registry(reg, graphcost.GraphCostLedger()):
+        t0 = time.perf_counter()
+        reg.compile_startup(dev)
+        closes, during, close_ms = 0, 0, []
+        while reg.state == "compiling":
+            app = DashboardApp(make_demo_transport("v5e4"), device="cuda", clock=clock)
+            try:
+                check(app.handle("/tpu")[0] == 200, "/tpu beside the startup capture")
+            finally:
+                t1 = time.perf_counter()
+                app.close()
+                close_ms.append((time.perf_counter() - t1) * 1e3)
+            closes += 1
+            during += reg.state == "compiling"
+            # Paced: back to back, the apps' Python starves the capture
+            # thread of the interpreter (9747 closes stretched the capture
+            # to 51.85 s on an H100).
+            time.sleep(CAPTURE_CLOSE_PAUSE_S)
+        check(reg.wait_ready(600.0) and reg.join(60.0),
+              "the startup capture did not finish in 600 s")
+        ready_s = time.perf_counter() - t0
+        snap = reg.snapshot()
+        check(snap["state"] == "ready" and snap["compile_errors"] == 0
+              and snap["last_error"] is None
+              and snap["programs_compiled"] == len(aot.default_specs()),
+              f"the registry after the startup capture: {snap}")
+        check(during >= 1, f"no close returned while the startup capture ran ({closes} closes)")
+        startup_err = _replay_against_eager(torch, reg, cols, key)
+    check(startup_err == 0.0, f"the fleet rollup's replay differs from eager by {startup_err}")
+    torch.cuda.synchronize()
+    launches = LAUNCHES.n
+    check(launches == 0, f"step 24 launched forecast_mlp_forward {launches} times, not 0")
+    out["startup"] = {"ready_s": ready_s, "closes": closes, "closes_during": during,
+                      "close_ms_p50": statistics.median(close_ms),
+                      "programs": snap["programs_compiled"], "replay_vs_eager": startup_err}
+    out["seconds"] = time.perf_counter() - t_step
+    print(f"capture-close: {closes} apps at --demo v5e4 built, painted and closed beside the "
+          f"startup capture of {snap['programs_compiled']} programs ({during} closes returned "
+          f"while it ran; close p50 {out['startup']['close_ms_p50']:.1f} ms); ready in "
+          f"{ready_s:.2f} s with 0 capture errors; fleet rollup replay vs eager "
+          f"{startup_err}; on {smi}")
+    print(f"capture-close: step 24 launched forecast_mlp_forward {launches} times; took "
+          f"{out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4746,6 +4906,10 @@ def main() -> int:
     #     columns, the Intel provider's cost per tick, the Intel paints),
     #     and a bus replica and a segment worker painting the Intel pages.
     intel_launches, _intel_row = intel_phase(torch, smi)
+
+    # 24. Closing an app on the card while the program registry captures
+    #     on its own thread: the close waits on its own stream only.
+    capture_close_launches, _capture_close_row = close_during_capture_phase(torch, clock, smi)
     from headlamp_tpu_torch.parallel import close_process_meshes
 
     close_process_meshes()
@@ -4775,7 +4939,8 @@ def main() -> int:
                      + cluster_launches + viewport_launches + live_launches + registry_launches
                      + mesh_launches + replay_launches + telemetry_launches
                      + gateway_launches + push_launches + replication_launches
-                     + workers_launches + scenarios_launches + intel_launches),
+                     + workers_launches + scenarios_launches + intel_launches
+                     + capture_close_launches),
         "launches_by_path": {"metrics_page": page_launches,
                              f"forecast_{SCALE_CHIPS}_chips": scale_launches,
                              "forecast_1_chip": one_launches,
@@ -4792,7 +4957,8 @@ def main() -> int:
                              "replication": replication_launches,
                              "workers": workers_launches,
                              "scenarios": scenarios_launches,
-                             "intel_provider": intel_launches},
+                             "intel_provider": intel_launches,
+                             "close_during_capture": capture_close_launches},
         "max_abs_err": max_err,
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],

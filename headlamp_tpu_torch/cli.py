@@ -73,12 +73,14 @@ def render_page(
         return render_text(route.component(metrics, forecast))
     if route.kind == "intel-metrics":
         return render_text(route.component(fetch_intel_gpu_metrics(transport, clock=clock)))
-    snap = AcceleratorDataContext(transport, device=dev, clock=clock).sync()
-    if route.kind == "topology":
-        return render_text(route.component(snap))
-    if route.kind == "native-nodes":
-        return render_text(route.component(snap, now=clock(), registry=registry))
-    return render_text(route.component(snap, now=clock()))
+    # Closing the context joins its node-track worker, on every exit.
+    with AcceleratorDataContext(transport, device=dev, clock=clock) as ctx:
+        snap = ctx.sync()
+        if route.kind == "topology":
+            return render_text(route.component(snap))
+        if route.kind == "native-nodes":
+            return render_text(route.component(snap, now=clock(), registry=registry))
+        return render_text(route.component(snap, now=clock()))
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -16,6 +16,7 @@ from typing import TYPE_CHECKING, Any, Hashable
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..obs.metrics import registry as _metrics_registry
 from ..obs.trace import annotate as _annotate
 from ..obs.trace import span as _span
@@ -63,10 +64,12 @@ class DeviceFleetCache:
     over an older version (or none): a request thread finishing the
     upload of a snapshot it read before the background loop warmed a
     newer one must not replace the newer entry. :meth:`seed` installs
-    columns that arrived already encoded. Failures propagate."""
+    columns that arrived already encoded. Failures propagate. The columns
+    live on CUDA unless the caller asks for the CPU; without CUDA the
+    constructor raises."""
 
-    def __init__(self, device: torch.device | str = "cpu") -> None:
-        self.device = torch.device(device)
+    def __init__(self, device: DeviceLike = None) -> None:
+        self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._entries: dict[str, tuple[int, FleetArrays]] = {}
         self.hits = 0

@@ -314,9 +314,17 @@ class ScenarioContext:
 
     def close(self) -> None:
         """Close every app this context built, the replica first: each
-        joins its refits and closes its live hub."""
+        joins its refits and closes its live hub. An app whose close
+        raises leaves none of the others open; the first error
+        propagates."""
+        error: BaseException | None = None
         for app in reversed(self.apps):
-            app.close()
+            try:
+                app.close()
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                error = error or exc
+        if error is not None:
+            raise error
 
 
 class ScenarioRunner:

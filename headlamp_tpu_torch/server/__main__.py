@@ -100,9 +100,13 @@ def main(argv: list[str] | None = None) -> None:
         if args.workers:
             parser.error("--replica excludes --workers (workers are replicas)")
         replica = ReplicaApp(device=args.device)
-        BusConsumer(replica, pool_fetch(args.replica)).start()
+        try:
+            BusConsumer(replica, pool_fetch(args.replica)).start()
+            server = replica.serve(args.host, args.port)
+        except BaseException:
+            replica.close()  # no server whose close() would; stops the consumer
+            raise
         # The server's close() closes the replica, which stops the consumer.
-        server = replica.serve(args.host, args.port)
         _serve_until_interrupted(
             server,
             f"TPU dashboard replica on {server.url}/tpu (bus {args.replica}, "
@@ -126,27 +130,27 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     app = DashboardApp(transport, device=args.device, pod_field_selector=selector)
-    elector = None
-    if args.replication_leader:
-        publisher = BusPublisher(note=f"{args.host}:{args.port}", ledger=app.ledger)
-        app.replication = publisher
-
-        def elected(fencing: int) -> None:
-            # The term's band: its generations outrank every earlier term's.
-            publisher.set_fencing(fencing)
-            app._ctx.advance_generation_floor(generation_floor(fencing))
-
-        elector = LeaderElector(
-            LeaseStore(), f"{args.host}:{args.port}", on_elected=elected, ledger=app.ledger
-        )
-        publisher.elector = elector
-        elector.tick()
-        elector.start()
-        mode += ", replication leader"
-    if args.background_sync:
-        app.start_background_sync(args.background_sync)
-    server = app.serve(args.host, args.port)
+    elector = server = None
     try:
+        if args.replication_leader:
+            publisher = BusPublisher(note=f"{args.host}:{args.port}", ledger=app.ledger)
+            app.replication = publisher
+
+            def elected(fencing: int) -> None:
+                # The term's band: its generations outrank every earlier term's.
+                publisher.set_fencing(fencing)
+                app._ctx.advance_generation_floor(generation_floor(fencing))
+
+            elector = LeaderElector(
+                LeaseStore(), f"{args.host}:{args.port}", on_elected=elected, ledger=app.ledger
+            )
+            publisher.elector = elector
+            elector.tick()
+            elector.start()
+            mode += ", replication leader"
+        if args.background_sync:
+            app.start_background_sync(args.background_sync)
+        server = app.serve(args.host, args.port)
         _serve_until_interrupted(
             server,
             f"TPU dashboard on {server.url}/tpu ({mode}, device {app.device}"
@@ -158,6 +162,8 @@ def main(argv: list[str] | None = None) -> None:
         if elector is not None:
             elector.stop()
             elector.resign()
+        if server is None:
+            app.close()  # the server's close() closes it otherwise
 
 
 if __name__ == "__main__":

@@ -1424,8 +1424,9 @@ class DashboardApp:
         background loop and join its thread, wait for every refit in
         flight (the SLO engine's budget fit too) and join its thread,
         join the context's reactive worker, then drop the process's warm
-        carries and the snapshot's device columns and wait for the card's
-        queued work, so nothing this app started is still running (the
+        carries and the snapshot's device columns and wait for the work
+        queued on the card's default stream, the stream its threads use,
+        so nothing this app started is still running (the
         loop is joined first, so a late warm cannot republish columns
         after the drop). Every ``/events`` subscription is evicted first
         (each gets ``bye``). Raises TimeoutError if a thread outlives
@@ -1456,7 +1457,11 @@ class DashboardApp:
         self._ctx.fleet_cache.invalidate()
         self._ctx.rollup_results.invalidate()
         if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+            # The app's threads queue their work on the card's default
+            # stream. A device-wide synchronize would also meet a capture
+            # in progress on another thread (the process registry's
+            # startup capture, on a side stream), which CUDA refuses.
+            torch.cuda.default_stream(self._device).synchronize()
 
 
 class DashboardServer:
@@ -1535,10 +1540,7 @@ def serve(
     (`app.py:1741`). Requests that arrive
     before the registry is ready run their programs eagerly. Building an
     app never starts either. Returns the running server; its ``close()``
-    stops everything it started."""
-    gateway = app.ensure_gateway()
-    aot.registry().compile_startup(app.device)
-    profiler().start()
+    stops everything it started; a bind that fails starts nothing."""
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self) -> None:  # noqa: N802 (http.server API)
@@ -1655,19 +1657,18 @@ def serve(
         def log_message(self, *args: Any) -> None:
             pass
 
-    try:
-        if listen_socket is not None:
-            httpd = ThreadingHTTPServer((host, port), Handler, bind_and_activate=False)
-            httpd.socket.close()
-            httpd.socket = listen_socket
-            httpd.server_address = listen_socket.getsockname()[:2]
-        elif reuse_port:
-            httpd = _ReusePortServer((host, port), Handler)
-        else:
-            httpd = ThreadingHTTPServer((host, port), Handler)
-    except BaseException:
-        # A bind that fails (a taken port) hands back the profiler use
-        # taken above: no server exists whose close() would.
-        profiler().stop()
-        raise
+    if listen_socket is not None:
+        httpd = ThreadingHTTPServer((host, port), Handler, bind_and_activate=False)
+        httpd.socket.close()
+        httpd.socket = listen_socket
+        httpd.server_address = listen_socket.getsockname()[:2]
+    elif reuse_port:
+        httpd = _ReusePortServer((host, port), Handler)
+    else:
+        httpd = ThreadingHTTPServer((host, port), Handler)
+    # Bound: start what the server's close() stops. No request is read
+    # before DashboardServer starts the accept loop.
+    gateway = app.ensure_gateway()
+    aot.registry().compile_startup(app.device)
+    profiler().start()
     return DashboardServer(app, httpd)

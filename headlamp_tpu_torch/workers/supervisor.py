@@ -164,7 +164,8 @@ class WorkerSupervisor:
     def stop(self) -> None:
         """SIGTERM every worker (each closes its server and app), kill one
         that outlives ``STOP_TIMEOUT_S``, join them all, then close the
-        leader's server and app, the listener, and the segment and the
+        leader's server and app (the app alone when its server never
+        started), the listener, and the segment and the
         board (their files unlinked)."""
         for proc in self._procs:
             if proc.is_alive():
@@ -176,8 +177,10 @@ class WorkerSupervisor:
                 proc.join()
         self._procs.clear()
         if self._bus_server is not None:
-            self._bus_server.close()
+            self._bus_server.close()  # closes the leader app too
             self._bus_server = None
+        elif self.app is not None:
+            self.app.close()  # a start that failed before the bus served
         if self._listener is not None:
             self._listener.close()
             self._listener = None

@@ -338,22 +338,28 @@ def worker_main(
     board = WorkerStatusBoard.attach(board_path)
     try:
         app = ReplicaApp(device=device)
-        slot = board.slot(worker_id)
-        register_worker_metrics(board)
-        app.workers = _BoardHealth(board, worker_id)
-        set_worker_identity(f"w{worker_id}")
-        consumer = ShmConsumer(
-            app, segment_path, fallback_fetch=pool_fetch(fallback_url) if fallback_url else None,
-            slot=slot,
-        )
-        index = app._cuda_index
-        with torch.cuda.device(index) if index is not None else contextlib.nullcontext():
-            consumer.tick()  # the first fill, before the socket opens
-        consumer.start()
+        try:
+            slot = board.slot(worker_id)
+            register_worker_metrics(board)
+            app.workers = _BoardHealth(board, worker_id)
+            set_worker_identity(f"w{worker_id}")
+            consumer = ShmConsumer(
+                app, segment_path,
+                fallback_fetch=pool_fetch(fallback_url) if fallback_url else None, slot=slot,
+            )
+            index = app._cuda_index
+            with torch.cuda.device(index) if index is not None else contextlib.nullcontext():
+                consumer.tick()  # the first fill, before the socket opens
+            consumer.start()
+            server = app.serve(
+                host, port, reuse_port=listen_socket is None, listen_socket=listen_socket
+            )
+        except BaseException:
+            # No server yet whose close() would: the app's close stops the
+            # consumer.
+            app.close()
+            raise
         # The server's close() closes the app, which stops the consumer.
-        server = app.serve(
-            host, port, reuse_port=listen_socket is None, listen_socket=listen_socket
-        )
         try:
             server.wait()
         except (KeyboardInterrupt, SystemExit):

@@ -36,6 +36,19 @@ FLEETS = {
 DAEMONSETS = "/apis/apps/v1/daemonsets?labelSelector=k8s-app%3Dtpu-device-plugin"
 
 
+#: The contexts the running test built; closed after it, pass or fail.
+_OPEN = []
+
+
+@pytest.fixture(autouse=True)
+def _close_contexts():
+    """Close every context a test built, so no node-track worker of the
+    port's outlives its test."""
+    yield
+    while _OPEN:
+        _OPEN.pop().close()
+
+
 def _contexts(fleet, *, jax_edit=lambda t: None, port_edit=lambda t: None):
     jmake, tmake = FLEETS[fleet]
     jt, tt = jfx.fleet_transport(jmake()), tfx.fleet_transport(tmake())
@@ -43,6 +56,7 @@ def _contexts(fleet, *, jax_edit=lambda t: None, port_edit=lambda t: None):
     port_edit(tt)
     jctx = JaxContext(jt, clock=lambda: CLOCK)
     tctx = AcceleratorDataContext(tt, device="cpu", clock=lambda: CLOCK)
+    _OPEN.extend((jctx, tctx))
     return (jctx, jt), (tctx, tt)
 
 
@@ -118,7 +132,6 @@ def test_same_requests_and_snapshot(fleet):
     jref, tref = jctx.refresh(), tctx.refresh()
     _assert_same_requests(jt.calls, tt.calls)
     assert _describe(tref) == _describe(jref)
-    jctx.close()
 
 
 def test_node_list_500_degrades_the_same():
@@ -136,7 +149,6 @@ def test_node_list_500_degrades_the_same():
     assert "nodes:" in tsnap.error and "HTTP 500" in tsnap.error
     assert _describe(tsnap) == _describe(jsnap)
     _assert_same_requests(jt.calls, tt.calls)
-    jctx.close()
 
 
 def test_missing_daemonset_route_degrades_the_same():
@@ -151,7 +163,6 @@ def test_missing_daemonset_route_degrades_the_same():
     assert state.plugin_installed  # daemon pods and chips still show it
     assert _describe(tsnap) == _describe(jsnap)
     _assert_same_requests(jt.calls, tt.calls)
-    jctx.close()
 
 
 def test_tpu_view_does_not_depend_on_the_intel_provider():
@@ -192,4 +203,3 @@ def test_clean_sync_keeps_the_snapshot_and_version():
     (jctx, jt), (tctx, tt) = _contexts("v5e4")
     got, want = run(tctx, tt), run(jctx, jt)
     assert got == want == [(1, False), (2, False), (3, False), (3, True)]
-    jctx.close()

@@ -284,8 +284,8 @@ def _viewport_state(n_nodes, device):
     from headlamp_tpu_torch.context import AcceleratorDataContext
     from headlamp_tpu_torch.fleet import fleet_transport, fleet_viewport
 
-    ctx = AcceleratorDataContext(fleet_transport(fleet_viewport(n_nodes)), device=device)
-    return ctx.sync().provider("tpu")
+    with AcceleratorDataContext(fleet_transport(fleet_viewport(n_nodes)), device=device) as ctx:
+        return ctx.sync().provider("tpu")
 
 
 def _tree_against_host_sums(state):

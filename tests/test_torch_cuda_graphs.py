@@ -88,8 +88,8 @@ def test_rollup_replays_equal_their_oracles(cuda, monkeypatch):
     reg = _registry(monkeypatch, [
         (aot.FLEET_ROLLUP, ((1024,), (1024,))), (aot.REGION_ROLLUP, ((1024,), (1024,))),
     ], cuda)
-    state = AcceleratorDataContext(fleet_transport(fleet_viewport(1024)), device=cuda).sync()
-    state = state.provider("tpu")
+    with AcceleratorDataContext(fleet_transport(fleet_viewport(1024)), device=cuda) as ctx:
+        state = ctx.sync().provider("tpu")
     got = stats.fleet_stats(state.view, device=cuda, fleet_cache=state.fleet_cache,
                             backend="cuda")
     assert got == stats.python_fleet_stats(state.view)

@@ -82,16 +82,18 @@ def painted(request):
         "plain": JaxApp(jax_demo_transport(fleet), clock=clock, min_sync_interval_s=0.0,
                         fragments=False),
     }
-    out = {"port": _paint(port)}
-    for name, app in jax_apps.items():
-        # The JAX package keeps one process-wide fleet cache keyed by
-        # (provider, snapshot version): an app that ran earlier in this
-        # process at the same version would serve its fleet's rollup.
-        jax_device_cache.fleet_cache.invalidate()
-        jax_device_cache.rollup_results.invalidate()
-        out[name] = _paint(app)
-    port.close()
-    tstats.calibration.reset()
+    try:
+        out = {"port": _paint(port)}
+        for name, app in jax_apps.items():
+            # The JAX package keeps one process-wide fleet cache keyed by
+            # (provider, snapshot version): an app that ran earlier in this
+            # process at the same version would serve its fleet's rollup.
+            jax_device_cache.fleet_cache.invalidate()
+            jax_device_cache.rollup_results.invalidate()
+            out[name] = _paint(app)
+    finally:
+        port.close()
+        tstats.calibration.reset()
     return fleet, out
 
 
@@ -115,36 +117,38 @@ def test_snapshot_pages_main_bytes_match_jax(painted, jax_app):
 def test_refresh_unregistered_and_healthz():
     tstats.calibration.reset()
     app = DashboardApp(make_demo_transport("large"), device="cpu", clock=clock)
-    health = json.loads(app.handle("/healthz")[2])
-    assert health["loading"] and health["analytics"]["calibrated"] is False
-    assert app.handle("/refresh?back=/tpu")[:2] == (302, "/tpu")
-    assert app.handle("/refresh?back=//evil.example")[:2] == (302, "/tpu")
-    assert app.handle("/tpu/no-such-page")[0] == 404
-    # The telemetry pages paint from their own snapshots: no sync either.
-    for path in ("/debug/generationz/html", "/debug/traces/html", "/sloz/html",
-                 "/debug/incidentz/html"):
-        assert app.handle(path)[0] == 200, path
-    assert app.handle("/tpu/trends")[0] == 200  # reads no snapshot: the app stays unsynced
-    assert json.loads(app.handle("/healthz")[2])["loading"]
+    try:
+        health = json.loads(app.handle("/healthz")[2])
+        assert health["loading"] and health["analytics"]["calibrated"] is False
+        assert app.handle("/refresh?back=/tpu")[:2] == (302, "/tpu")
+        assert app.handle("/refresh?back=//evil.example")[:2] == (302, "/tpu")
+        assert app.handle("/tpu/no-such-page")[0] == 404
+        # The telemetry pages paint from their own snapshots: no sync either.
+        for path in ("/debug/generationz/html", "/debug/traces/html", "/sloz/html",
+                     "/debug/incidentz/html"):
+            assert app.handle(path)[0] == 200, path
+        assert app.handle("/tpu/trends")[0] == 200  # reads no snapshot: the app stays unsynced
+        assert json.loads(app.handle("/healthz")[2])["loading"]
 
-    assert app.handle("/tpu")[0] == 200
-    # The Intel pages are registered, as in JAX: served from the same
-    # synced snapshot (the large fleet has no Intel node).
-    status, _, body = app.handle("/intel")
-    assert status == 200 and "Intel GPU Plugin Not Detected" in body
-    health = json.loads(app.handle("/healthz")[2])
-    assert health["nodes"] == 1024 and not health["loading"] and health["errors"] == []
-    analytics = health["analytics"]
-    assert analytics["calibrated"] and analytics["backend"] == "torch"
-    assert analytics["tpu_nodes"] == 991 and analytics["floor_nodes"] == 64
-    assert analytics["chosen_backend"] in ("torch", "python")
-    fleet_cache = health["runtime"]["fleet_cache"]
-    # Two refreshes and a sync built three snapshot versions.
-    assert fleet_cache["uploads"] == 1 and fleet_cache["entries"] == {"tpu": 3}
-    assert fleet_cache["device"] == "cpu"
-    app.close()
+        assert app.handle("/tpu")[0] == 200
+        # The Intel pages are registered, as in JAX: served from the same
+        # synced snapshot (the large fleet has no Intel node).
+        status, _, body = app.handle("/intel")
+        assert status == 200 and "Intel GPU Plugin Not Detected" in body
+        health = json.loads(app.handle("/healthz")[2])
+        assert health["nodes"] == 1024 and not health["loading"] and health["errors"] == []
+        analytics = health["analytics"]
+        assert analytics["calibrated"] and analytics["backend"] == "torch"
+        assert analytics["tpu_nodes"] == 991 and analytics["floor_nodes"] == 64
+        assert analytics["chosen_backend"] in ("torch", "python")
+        fleet_cache = health["runtime"]["fleet_cache"]
+        # Two refreshes and a sync built three snapshot versions.
+        assert fleet_cache["uploads"] == 1 and fleet_cache["entries"] == {"tpu": 3}
+        assert fleet_cache["device"] == "cpu"
+    finally:
+        app.close()
+        tstats.calibration.reset()
     assert json.loads(app.handle("/healthz")[2])["runtime"]["fleet_cache"]["entries"] == {}
-    tstats.calibration.reset()
 
 
 def test_sync_interval_coalesces_and_the_trace_names_the_rollup():
@@ -156,32 +160,36 @@ def test_sync_interval_coalesces_and_the_trace_names_the_rollup():
     def node_lists():
         return sum(c.startswith("/api/v1/nodes?limit") for c in transport.calls)
 
-    assert app.handle("/tpu")[0] == 200
-    rollup = _span("analytics.rollup")
-    assert rollup["attrs"]["backend"] == "torch" and rollup["attrs"]["fleet_cache"] == "miss"
-    assert _span("sync.snapshot")["attrs"] == {"source": "inline-sync", "nodes": 1024}
-    lists = node_lists()
-    mono[0] += 4.0  # inside the 5 s interval: coalesced, stats reused
-    assert app.handle("/tpu")[0] == 200 and node_lists() == lists
-    assert _span("sync.snapshot")["attrs"]["source"] == "coalesced"
-    with pytest.raises(AssertionError, match="no analytics.rollup span"):
-        _span("analytics.rollup")
-    assert app._ctx.fleet_cache.counters()["uploads"] == 1
-    mono[0] += 1.5  # past it: one re-list, a new version
-    assert app.handle("/tpu/nodes")[0] == 200 and node_lists() == lists + 3
-    app.close()
-    tstats.calibration.reset()
+    try:
+        assert app.handle("/tpu")[0] == 200
+        rollup = _span("analytics.rollup")
+        assert rollup["attrs"]["backend"] == "torch" and rollup["attrs"]["fleet_cache"] == "miss"
+        assert _span("sync.snapshot")["attrs"] == {"source": "inline-sync", "nodes": 1024}
+        lists = node_lists()
+        mono[0] += 4.0  # inside the 5 s interval: coalesced, stats reused
+        assert app.handle("/tpu")[0] == 200 and node_lists() == lists
+        assert _span("sync.snapshot")["attrs"]["source"] == "coalesced"
+        with pytest.raises(AssertionError, match="no analytics.rollup span"):
+            _span("analytics.rollup")
+        assert app._ctx.fleet_cache.counters()["uploads"] == 1
+        mono[0] += 1.5  # past it: one re-list, a new version
+        assert app.handle("/tpu/nodes")[0] == 200 and node_lists() == lists + 3
+    finally:
+        app.close()
+        tstats.calibration.reset()
 
 
 def test_topology_heatmap_comes_from_the_metrics_peek():
     app = DashboardApp(make_demo_transport("v5p32"), device="cpu", clock=clock)
-    calls = app._transport.calls
-    assert "hl-heat-" not in _main(app.handle("/tpu/topology")[2])
-    assert not any("/proxy/api/v1/query" in c for c in calls)  # never fetches
-    assert app._cached_metrics() is not None
-    body = _main(app.handle("/tpu/topology")[2])
-    assert "hl-heat-" in body and "joined from the cached telemetry snapshot" in body
-    app.close()
+    try:
+        calls = app._transport.calls
+        assert "hl-heat-" not in _main(app.handle("/tpu/topology")[2])
+        assert not any("/proxy/api/v1/query" in c for c in calls)  # never fetches
+        assert app._cached_metrics() is not None
+        body = _main(app.handle("/tpu/topology")[2])
+        assert "hl-heat-" in body and "joined from the cached telemetry snapshot" in body
+    finally:
+        app.close()
 
 
 def test_rollup_error_is_a_500_naming_it(monkeypatch):
@@ -192,10 +200,12 @@ def test_rollup_error_is_a_500_naming_it(monkeypatch):
     tstats.calibration.reset()
     app = DashboardApp(make_demo_transport("large"), device="cpu", clock=clock,
                        min_sync_interval_s=0.0)
-    for _ in range(2):  # nothing is pinned broken and nothing falls back
-        status, ctype, body = app.handle("/tpu")
-        assert (status, ctype) == (500, "text/html")
-        assert "Internal error: RuntimeError: rollup kernel failed" in body
-    assert app.handle("/tpu/nodes")[0] == 200  # pages without the rollup serve
-    app.close()
-    tstats.calibration.reset()
+    try:
+        for _ in range(2):  # nothing is pinned broken and nothing falls back
+            status, ctype, body = app.handle("/tpu")
+            assert (status, ctype) == (500, "text/html")
+            assert "Internal error: RuntimeError: rollup kernel failed" in body
+        assert app.handle("/tpu/nodes")[0] == 200  # pages without the rollup serve
+    finally:
+        app.close()
+        tstats.calibration.reset()

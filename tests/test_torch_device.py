@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from headlamp_tpu_torch import cli
+from headlamp_tpu_torch.context import AcceleratorDataContext
 from headlamp_tpu_torch.device import resolve_device
 from headlamp_tpu_torch.kernels import build
 from headlamp_tpu_torch.models import fused_forward as ff
@@ -21,6 +22,7 @@ from headlamp_tpu_torch.models.forecast import (
     fit_and_forecast_with_dispatch,
     init_params,
 )
+from headlamp_tpu_torch.runtime.device_cache import DeviceFleetCache
 from headlamp_tpu_torch.server.demo import make_demo_transport
 
 #: pytest-xdist runs several workers on the same cores: one intra-op
@@ -75,6 +77,17 @@ class TestDevicePolicy:
             cli.render_page("metrics", make_demo_transport("v5e4"))
         with pytest.raises(RuntimeError):
             cli.main(["metrics", "--demo", "v5e4"])
+
+    def test_device_fleet_cache_defaults_to_cuda(self, no_cuda):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DeviceFleetCache()
+        cache = DeviceFleetCache("cpu")
+        with AcceleratorDataContext(make_demo_transport("v5e4"), device="cpu") as ctx:
+            view = ctx.sync().provider("tpu").view
+        fleet = cache.fleet_for(view)
+        assert cache.device == torch.device("cpu") and fleet.node_capacity.device.type == "cpu"
+        assert cache.fleet_for(view) is fleet
+        assert cache.counters() == {"hits": 1, "misses": 1, "uploads": 1}
 
 
 class TestNoHiddenFallback:

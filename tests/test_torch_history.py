@@ -255,56 +255,63 @@ def test_history_first_forecast_matches_jax_with_no_range_query(monkeypatch):
 def test_a_thin_store_falls_through_to_the_live_window():
     app = DashboardApp(make_demo_transport("v5p32"), device="cpu", clock=clock,
                        min_sync_interval_s=0.0)
-    status, _, body = app.handle("/tpu/metrics")
-    assert status == 200 and "live-window history" in body
-    assert any("/query_range" in c for c in app._transport.calls)
-    assert app.history.scrapes == 1  # the scrape was captured, one point is no window
-    app.close()
+    try:
+        status, _, body = app.handle("/tpu/metrics")
+        assert status == 200 and "live-window history" in body
+        assert any("/query_range" in c for c in app._transport.calls)
+        assert app.history.scrapes == 1  # the scrape was captured, one point is no window
+    finally:
+        app.close()
 
 
 def test_host_serves_trends_history_health_and_families():
     mono = Mono(1000.0)
     t = make_demo_transport("v5p32")
     app = DashboardApp(t, device="cpu", clock=clock, monotonic=mono, min_sync_interval_s=0.0)
-    assert app.handle("/tpu/metrics")[0] == 200
-    assert app.handle("/tpu")[0] == 200
-    mono.now += 30.0
-    calls = len(t.calls)
-    status, ctype, body = app.handle("/tpu/trends")
-    assert status == 200 and ctype == "text/html" and len(t.calls) == calls  # no sync
-    for text in ("hl-trend-strip", "History store", "fleet.mean_tensorcore_utilization",
-                 "sync.generation", 'href="/tpu/trends"'):
-        assert text in body, text
-    status, _, body = app.handle("/tpu/trends?window=900")
-    assert status == 200 and 'hl-trend-window active" href="/tpu/trends?window=900"' in body
-    status, _, body = app.handle("/tpu/trends?metric=chip.tensorcore_utilization&limit=4")
-    assert status == 200 and "rows 1–4 of" in body and "hl-cursor-next" in body
-    history = json.loads(app.handle("/healthz")[2])["runtime"]["history"]
-    assert history["scrapes"] == 1 and history["syncs"] == 2 and history["points"] > 0
-    metricsz = app.handle("/metricsz")[2]
-    for family in ("points_total", "evicted_total", "memory_bytes", "window_span_seconds"):
-        assert f"headlamp_tpu_torch_history_{family}" in metricsz, family
-    assert "headlamp_tpu_history" not in metricsz
-    app.close()
+    try:
+        assert app.handle("/tpu/metrics")[0] == 200
+        assert app.handle("/tpu")[0] == 200
+        mono.now += 30.0
+        calls = len(t.calls)
+        status, ctype, body = app.handle("/tpu/trends")
+        assert status == 200 and ctype == "text/html" and len(t.calls) == calls  # no sync
+        for text in ("hl-trend-strip", "History store", "fleet.mean_tensorcore_utilization",
+                     "sync.generation", 'href="/tpu/trends"'):
+            assert text in body, text
+        status, _, body = app.handle("/tpu/trends?window=900")
+        assert status == 200 and 'hl-trend-window active" href="/tpu/trends?window=900"' in body
+        status, _, body = app.handle("/tpu/trends?metric=chip.tensorcore_utilization&limit=4")
+        assert status == 200 and "rows 1–4 of" in body and "hl-cursor-next" in body
+        history = json.loads(app.handle("/healthz")[2])["runtime"]["history"]
+        assert history["scrapes"] == 1 and history["syncs"] == 2 and history["points"] > 0
+        metricsz = app.handle("/metricsz")[2]
+        for family in ("points_total", "evicted_total", "memory_bytes", "window_span_seconds"):
+            assert f"headlamp_tpu_torch_history_{family}" in metricsz, family
+        assert "headlamp_tpu_history" not in metricsz
+    finally:
+        app.close()
 
 
 def test_host_forecast_trains_on_history_once_the_store_holds_a_window():
     mono = Mono(1000.0)
     t = make_demo_transport("large")
     app = DashboardApp(t, device="cpu", clock=clock, monotonic=mono)
-    metrics = app._cached_metrics()
-    # The demo Prometheus's range query serves the first 64 chips.
-    chips = metrics.chips[:64]
-    values = tf.synthetic_telemetry(64, 61, torch.Generator().manual_seed(7), device="cpu").tolist()
-    for step in range(61):
-        app.history.record_scrape(_scrape([
-            (c.node, c.accelerator_id, values[i][step], None) for i, c in enumerate(chips)
-        ]))
-        mono.now += 60.0
-    calls = len(t.calls)
-    status, _, body = app.handle("/tpu/metrics")
-    view = app._forecast_refresher.peek(app._metrics_key(metrics), epoch=app._cache_epoch)
-    assert status == 200 and "of captured history in" in body and "history history" not in body
-    assert (view.data_source, view.inference_path, len(view.chips)) == ("history", "torch", 64)
-    assert not any("/query_range" in c for c in t.calls[calls:])
-    app.close()
+    try:
+        metrics = app._cached_metrics()
+        # The demo Prometheus's range query serves the first 64 chips.
+        chips = metrics.chips[:64]
+        values = tf.synthetic_telemetry(
+            64, 61, torch.Generator().manual_seed(7), device="cpu").tolist()
+        for step in range(61):
+            app.history.record_scrape(_scrape([
+                (c.node, c.accelerator_id, values[i][step], None) for i, c in enumerate(chips)
+            ]))
+            mono.now += 60.0
+        calls = len(t.calls)
+        status, _, body = app.handle("/tpu/metrics")
+        view = app._forecast_refresher.peek(app._metrics_key(metrics), epoch=app._cache_epoch)
+        assert status == 200 and "of captured history in" in body and "history history" not in body
+        assert (view.data_source, view.inference_path, len(view.chips)) == ("history", "torch", 64)
+        assert not any("/query_range" in c for c in t.calls[calls:])
+    finally:
+        app.close()

@@ -72,8 +72,9 @@ FLEETS = {"mixed": _mixed, "no_intel": _no_intel, "degraded_crd": _degraded, "la
 
 def _snapshots(make):
     jsnap = JaxContext(jfx.fleet_transport(make(jfx)), clock=clock).sync()
-    tctx = AcceleratorDataContext(tfx.fleet_transport(make(tfx)), device="cpu", clock=clock)
-    return jsnap, tctx.sync()
+    with AcceleratorDataContext(tfx.fleet_transport(make(tfx)), device="cpu",
+                                clock=clock) as tctx:
+        return jsnap, tctx.sync()
 
 
 @pytest.fixture(autouse=True)

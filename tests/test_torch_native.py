@@ -24,9 +24,12 @@ from headlamp_tpu import cli as jax_cli
 from headlamp_tpu import registration as jax_reg
 from headlamp_tpu.context import AcceleratorDataContext as JaxContext
 from headlamp_tpu.fleet import fixtures as jfx
+from headlamp_tpu.obs import metrics as jax_metrics
 from headlamp_tpu.pages import native as jax_native
 from headlamp_tpu.runtime import device_cache as jax_device_cache
+from headlamp_tpu.runtime.transfer import TransferBatch
 from headlamp_tpu.server import DashboardApp as JaxApp
+from headlamp_tpu.server import app as jax_app_mod
 from headlamp_tpu.server import make_demo_transport as jax_demo_transport
 from headlamp_tpu.ui import render_html as jax_render_html
 from headlamp_tpu.ui import render_text as jax_render_text
@@ -60,16 +63,29 @@ def _main(body):
     return re.search(r"<main>(.*)</main>", body, re.S).group(1)
 
 
-def _paint(app, paths):
+def _paint(app, paths, handle=None):
     """Status and <main> of every path, in order; the cursor of the first
     slice window continues the second."""
+    handle = handle or app.handle
     out, cursor = {}, ""
     for path in paths:
-        status, _, body = app.handle(path.format(cursor=quote(cursor)))
+        status, _, body = handle(path.format(cursor=quote(cursor)))
         out[path] = (status, _main(body))
         if (found := _CURSOR.search(body)) and not cursor:
             cursor = found.group(1)
     return out
+
+
+def _jax_handle(app, path):
+    """``app.handle(path)`` of a JAX host, but a detail view (a node or a
+    pod) goes through JAX's dispatch without the request wrapper: the
+    wrapper would record its route template, ``/node/{name}``, as a label
+    in JAX's process-wide metrics registry, where other test files'
+    exposition parsers read it."""
+    if "{" not in app._route_label(path):
+        return app.handle(path)
+    with TransferBatch().scope():
+        return app._handle(path)
 
 
 def _jax_apps(make_transport):
@@ -86,7 +102,7 @@ def _paint_jax(apps, paths):
         # (provider, snapshot version): clear it before each app.
         jax_device_cache.fleet_cache.invalidate()
         jax_device_cache.rollup_results.invalidate()
-        out[name] = _paint(app, paths)
+        out[name] = _paint(app, paths, lambda path, app=app: _jax_handle(app, path))
     return out
 
 
@@ -94,10 +110,12 @@ def _paint_jax(apps, paths):
 def fleet_painted():
     port = DashboardApp(tfx.fleet_transport(tfx.fleet_viewport(1024)), device="cpu",
                         clock=clock, min_sync_interval_s=0.0)
-    out = _paint_jax(_jax_apps(lambda: jfx.fleet_transport(jfx.fleet_viewport(1024))),
-                     FLEET_PATHS)
-    out["port"] = _paint(port, FLEET_PATHS)
-    port.close()
+    try:
+        out = _paint_jax(_jax_apps(lambda: jfx.fleet_transport(jfx.fleet_viewport(1024))),
+                         FLEET_PATHS)
+        out["port"] = _paint(port, FLEET_PATHS)
+    finally:
+        port.close()
     return out
 
 
@@ -137,9 +155,11 @@ def test_native_detail_main_bytes_match_jax(demo):
     paths = _detail_paths(DEMO_FLEETS[demo]())
     port = DashboardApp(make_demo_transport(demo), device="cpu", clock=clock,
                         min_sync_interval_s=0.0)
-    got = _paint(port, paths)
-    want = _paint_jax(_jax_apps(lambda: jax_demo_transport(demo)), paths)
-    port.close()
+    try:
+        got = _paint(port, paths)
+        want = _paint_jax(_jax_apps(lambda: jax_demo_transport(demo)), paths)
+    finally:
+        port.close()
     for jax_app in ("fragments", "plain"):
         assert got == want[jax_app]
     assert [status for status, _ in got.values()] == [200, 200, 404, 200, 404]
@@ -149,11 +169,35 @@ def test_native_detail_main_bytes_match_jax(demo):
     assert "hl-pod-detail" in tpu_pod
 
 
+def _braced_label_values(registry):
+    text = registry.render() + registry.render(openmetrics=True)
+    return {v for v in re.findall(r'="((?:[^"\\]|\\.)*)"', text) if "{" in v or "}" in v}
+
+
+def test_jax_detail_paints_leave_no_braced_route_label(monkeypatch):
+    # The JAX apps record into a metrics registry of this test's own, so
+    # the wrapped dispatch below labels nothing of the process's.
+    process = _braced_label_values(jax_metrics.registry)
+    own = jax_metrics.MetricRegistry()
+    monkeypatch.setattr(jax_app_mod, "metrics_registry", own)
+    apps = _jax_apps(lambda: jax_demo_transport("v5p32"))
+    paths = _detail_paths(tfx.fleet_v5p32())
+    painted = _paint_jax(apps, paths)
+    assert [status for status, _ in painted["plain"].values()] == [200, 200, 404, 200, 404]
+    assert _braced_label_values(own) == set()
+    assert _braced_label_values(jax_metrics.registry) == process
+    # JAX's request wrapper labels a detail path with its route template.
+    assert apps["plain"].handle(paths[0])[0] == 200
+    assert _braced_label_values(own) == {"/node/{name}"}
+    assert _braced_label_values(jax_metrics.registry) == process
+
+
 @pytest.fixture(scope="module")
 def snapshots():
     jsnap = JaxContext(jfx.fleet_transport(jfx.fleet_large(1024)), clock=clock).sync()
-    tsnap = AcceleratorDataContext(tfx.fleet_transport(tfx.fleet_large(1024)), device="cpu",
-                                   clock=clock).sync()
+    with AcceleratorDataContext(tfx.fleet_transport(tfx.fleet_large(1024)), device="cpu",
+                                clock=clock) as tctx:
+        tsnap = tctx.sync()
     return jsnap, tsnap
 
 
@@ -174,17 +218,19 @@ def test_native_nodes_page_matches_jax_with_the_tpu_columns(snapshots, paging):
 def test_route_labels_refresh_allowlist_and_cli_match_jax():
     port = DashboardApp(make_demo_transport("large"), device="cpu", clock=clock)
     jax = JaxApp(jax_demo_transport("large"), clock=clock)
-    for path in ("/node/gke-cpu-pool-n3", "/pod/team-1/workload-1", "/tpu/fleet?region=x",
-                 "/nodes?page=2", "/node/Bad_Name", "/pod/only-namespace"):
-        assert port._route_label(path) == jax._route_label(path), path
-    assert port._route_label("/node/a") == "/node/{name}"
-    assert port._route_label("/pod/ns/a") == "/pod/{namespace}/{name}"
-    for back in ("/node/gke-cpu-pool-n3", "/pod/team-1/workload-1", "/tpu/fleet", "/nodes"):
-        assert port.handle(f"/refresh?back={back}") == jax.handle(f"/refresh?back={back}") \
-            == (302, back, "")
-    for back in ("/node/Bad_Name", "/node//evil", "/pod/a/b/c", "//evil.example"):
-        assert port.handle(f"/refresh?back={back}")[:2] == (302, "/tpu")
-    port.close()
+    try:
+        for path in ("/node/gke-cpu-pool-n3", "/pod/team-1/workload-1", "/tpu/fleet?region=x",
+                     "/nodes?page=2", "/node/Bad_Name", "/pod/only-namespace"):
+            assert port._route_label(path) == jax._route_label(path), path
+        assert port._route_label("/node/a") == "/node/{name}"
+        assert port._route_label("/pod/ns/a") == "/pod/{namespace}/{name}"
+        for back in ("/node/gke-cpu-pool-n3", "/pod/team-1/workload-1", "/tpu/fleet", "/nodes"):
+            assert port.handle(f"/refresh?back={back}") == jax.handle(f"/refresh?back={back}") \
+                == (302, back, "")
+        for back in ("/node/Bad_Name", "/node//evil", "/pod/a/b/c", "//evil.example"):
+            assert port.handle(f"/refresh?back={back}")[:2] == (302, "/tpu")
+    finally:
+        port.close()
 
     text = render_page("cluster-nodes", make_demo_transport("large"), clock=clock, device="cpu")
     jsnap = JaxContext(jax_demo_transport("large"), clock=clock).sync()

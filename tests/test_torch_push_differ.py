@@ -38,10 +38,10 @@ FLEETS = {
 
 def _snaps(jax_fleet, torch_fleet):
     jctx = JaxContext(jfx.fleet_transport(jax_fleet), clock=lambda: CLOCK)
-    tctx = AcceleratorDataContext(
+    with AcceleratorDataContext(
         tfx.fleet_transport(torch_fleet), device="cpu", clock=lambda: CLOCK
-    )
-    return jctx.sync(), tctx.sync()
+    ) as tctx:
+        return jctx.sync(), tctx.sync()
 
 
 def _peeks(n_chips, seed=0, shift=0.0):

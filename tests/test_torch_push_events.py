@@ -65,25 +65,27 @@ def _events_total():
 
 def test_open_event_stream_parses_as_the_jax_host_does():
     port = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
-    jax = JaxApp(jax_demo_transport("v5e4"), clock=clock)
-    paths = [
-        "/events", "/events?pages=/tpu,/tpu/pods", "/events?pages=/tpu/bogus,/tpu/nodes",
-        "/events?pages=/nope", "/events?region=cluster/3", "/events?region=cluster/3/slice/p-7",
-        "/events?region=/cluster/3/", "/events?region=nope/3", "/events?class=debug",
-        "/events?class=debug&pages=/tpu/metrics", "/events?class=other",
-    ]
-    before = _events_total()
-    for path in paths:
-        got = port.open_event_stream(path, last_event_id="g0")
-        want = jax.open_event_stream(path, last_event_id="g0")
-        assert (got.pages, got.priority) == (want.pages, want.priority), path
-    assert _events_total() - before == len(paths)
-    assert port.open_event_stream("/events?region=cluster/3").pages == {"region:cluster/3"}
-    assert port._route_label("/events") == jax._route_label("/events") == "/events"
-    # handle() is not the stream: JAX's answers 404 too.
-    assert port.handle("/events")[0] == jax.handle("/events")[0] == 404
-    assert port.push.hub.connected() == len(paths) + 1
-    port.close()
+    try:
+        jax = JaxApp(jax_demo_transport("v5e4"), clock=clock)
+        paths = [
+            "/events", "/events?pages=/tpu,/tpu/pods", "/events?pages=/tpu/bogus,/tpu/nodes",
+            "/events?pages=/nope", "/events?region=cluster/3", "/events?region=cluster/3/slice/p-7",
+            "/events?region=/cluster/3/", "/events?region=nope/3", "/events?class=debug",
+            "/events?class=debug&pages=/tpu/metrics", "/events?class=other",
+        ]
+        before = _events_total()
+        for path in paths:
+            got = port.open_event_stream(path, last_event_id="g0")
+            want = jax.open_event_stream(path, last_event_id="g0")
+            assert (got.pages, got.priority) == (want.pages, want.priority), path
+        assert _events_total() - before == len(paths)
+        assert port.open_event_stream("/events?region=cluster/3").pages == {"region:cluster/3"}
+        assert port._route_label("/events") == jax._route_label("/events") == "/events"
+        # handle() is not the stream: JAX's answers 404 too.
+        assert port.handle("/events")[0] == jax.handle("/events")[0] == 404
+        assert port.push.hub.connected() == len(paths) + 1
+    finally:
+        port.close()
     assert port.push.hub.snapshot()["evictions"] == len(paths) + 1
 
 

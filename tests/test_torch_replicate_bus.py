@@ -84,10 +84,10 @@ def _forecast(view_cls, chip_cls):
 def _snapshots(fleet_name="fleet_v5p32"):
     # Both contexts classify for both providers, TPU and Intel.
     jctx = JaxContext(jfx.fleet_transport(getattr(jfx, fleet_name)()), clock=clock)
-    tctx = AcceleratorDataContext(
+    with AcceleratorDataContext(
         tfx.fleet_transport(getattr(tfx, fleet_name)()), device="cpu", clock=clock
-    )
-    return jctx.sync(), tctx.sync()
+    ) as tctx:
+        return jctx.sync(), tctx.sync()
 
 
 @pytest.mark.parametrize("fleet_name", ["fleet_v5p32", "fleet_v5p32_degraded", "fleet_mixed"])
@@ -158,29 +158,35 @@ def _apply_across(leader_cls, add_prometheus, fixtures, replica_factory, replica
 
 
 def test_payloads_cross_between_the_packages_and_apply():
-    pairs = [
+    pairs = []
+    try:
         # A JAX leader's bus feeding a port replica, and the reverse.
-        _apply_across(JaxApp, jax_add_prometheus, jfx,
-                      lambda: trep.ReplicaApp(device="cpu", clock=clock), trep, jrep),
-        _apply_across(DashboardApp, add_demo_prometheus, tfx,
-                      lambda: jrep.ReplicaApp(clock=clock), jrep, trep),
-    ]
-    for leader, replica in pairs:
-        assert replica.snapshot_generation() == leader.snapshot_generation() == 3
-        assert trep.encode_snapshot(replica._last_snapshot) == jrep.encode_snapshot(
-            leader._last_snapshot)
-        assert set(trep.encode_snapshot(replica._last_snapshot)["providers"]) == {"tpu", "intel"}
-        for metric in ("sync.generation", "sync.nodes", "sync.errors"):
-            assert replica.history.series(metric)[1] == leader.history.series(metric)[1], metric
-        assert replica.applied == 2 and replica.history.syncs == 2
-    # The port replica's views are the port's own, stamped with the generation.
-    port_replica = pairs[0][1]
-    tpu = port_replica._last_snapshot.provider("tpu")
-    assert tpu.view.version == 3 and str(tpu.device) == "cpu"
-    assert tpu.fleet_cache is port_replica._ctx.fleet_cache
-    # The port's apps join what they started; JAX's have no close().
-    pairs[0][1].close()
-    pairs[1][0].close()
+        pairs.append(_apply_across(JaxApp, jax_add_prometheus, jfx,
+                                   lambda: trep.ReplicaApp(device="cpu", clock=clock),
+                                   trep, jrep))
+        pairs.append(_apply_across(DashboardApp, add_demo_prometheus, tfx,
+                                   lambda: jrep.ReplicaApp(clock=clock), jrep, trep))
+        for leader, replica in pairs:
+            assert replica.snapshot_generation() == leader.snapshot_generation() == 3
+            assert trep.encode_snapshot(replica._last_snapshot) == jrep.encode_snapshot(
+                leader._last_snapshot)
+            assert set(trep.encode_snapshot(replica._last_snapshot)["providers"]) \
+                == {"tpu", "intel"}
+            for metric in ("sync.generation", "sync.nodes", "sync.errors"):
+                assert replica.history.series(metric)[1] == leader.history.series(metric)[1], \
+                    metric
+            assert replica.applied == 2 and replica.history.syncs == 2
+        # The port replica's views are the port's own, stamped with the generation.
+        port_replica = pairs[0][1]
+        tpu = port_replica._last_snapshot.provider("tpu")
+        assert tpu.view.version == 3 and str(tpu.device) == "cpu"
+        assert tpu.fleet_cache is port_replica._ctx.fleet_cache
+    finally:
+        # The port's apps join what they started; JAX's have no close().
+        if pairs:
+            pairs[0][1].close()
+        if len(pairs) > 1:
+            pairs[1][0].close()
 
 
 def test_publishers_fence_and_resume_as_jax():

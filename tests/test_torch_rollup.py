@@ -165,16 +165,18 @@ def test_one_probe_per_window_and_the_measured_winner_serves(monkeypatch):
 
 def test_recalibrate_resets_the_measurement_and_the_device_columns():
     app = DashboardApp(make_demo_transport("large"), device="cpu", clock=lambda: CLOCK)
-    assert app.handle("/tpu")[0] == 200
-    assert tstats.calibration.device_ms is not None
-    assert app._ctx.fleet_cache.snapshot()["entries"] == {"tpu": 1}
-    # The routine header link keeps both.
-    assert app.handle("/refresh?back=/tpu") == (302, "/tpu", "")
-    assert tstats.calibration.device_ms is not None
-    assert app.handle("/refresh?back=/tpu&recalibrate=1") == (302, "/tpu", "")
-    assert tstats.calibration.device_ms is None
-    assert app._ctx.fleet_cache.snapshot()["entries"] == {}
-    app.close()
+    try:
+        assert app.handle("/tpu")[0] == 200
+        assert tstats.calibration.device_ms is not None
+        assert app._ctx.fleet_cache.snapshot()["entries"] == {"tpu": 1}
+        # The routine header link keeps both.
+        assert app.handle("/refresh?back=/tpu") == (302, "/tpu", "")
+        assert tstats.calibration.device_ms is not None
+        assert app.handle("/refresh?back=/tpu&recalibrate=1") == (302, "/tpu", "")
+        assert tstats.calibration.device_ms is None
+        assert app._ctx.fleet_cache.snapshot()["entries"] == {}
+    finally:
+        app.close()
 
 
 def test_device_rollup_error_propagates_without_fallback(monkeypatch):

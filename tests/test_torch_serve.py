@@ -87,25 +87,29 @@ class TestRefresher:
 
     def test_epoch_bump_and_fleet_change_refit(self):
         app = DashboardApp(make_demo_transport("v5e4"), device="cpu")
-        fits = []
-        app._compute_forecast = lambda m: (fits.append(1), f"view{len(fits)}")[1]
-        m1 = _metrics(("n1", "0"), ("n1", "1"))
-        assert app._forecast_for(m1) == "view1" and app._forecast_for(m1) == "view1"
-        # A different chip set never gets another fleet's forecast.
-        assert app._forecast_for(_metrics(("n2", "0"))) == "view2"
-        # /refresh bumps the epoch: the old entry is invisible and the
-        # next read blocks on a fresh fit.
-        assert app.handle("/refresh")[0] == 302
-        assert app._forecast_refresher.peek(app._metrics_key(m1), epoch=app._cache_epoch) is None
-        assert app._forecast_for(m1) == "view3" and len(fits) == 3
-        # get_nowait: a cold key starts the fit in the background and
-        # answers None; once it lands, the value (and on_store saw it).
-        stored = []
-        r = app._forecast_refresher
-        r.on_store = lambda key, value: stored.append(value)
-        assert r.get_nowait("cold", lambda: "bg") is None
-        assert r.drain() and r.get_nowait("cold", lambda: "again") == "bg"
-        assert stored == ["bg"]
+        try:
+            fits = []
+            app._compute_forecast = lambda m: (fits.append(1), f"view{len(fits)}")[1]
+            m1 = _metrics(("n1", "0"), ("n1", "1"))
+            assert app._forecast_for(m1) == "view1" and app._forecast_for(m1) == "view1"
+            # A different chip set never gets another fleet's forecast.
+            assert app._forecast_for(_metrics(("n2", "0"))) == "view2"
+            # /refresh bumps the epoch: the old entry is invisible and the
+            # next read blocks on a fresh fit.
+            assert app.handle("/refresh")[0] == 302
+            assert app._forecast_refresher.peek(
+                app._metrics_key(m1), epoch=app._cache_epoch) is None
+            assert app._forecast_for(m1) == "view3" and len(fits) == 3
+            # get_nowait: a cold key starts the fit in the background and
+            # answers None; once it lands, the value (and on_store saw it).
+            stored = []
+            r = app._forecast_refresher
+            r.on_store = lambda key, value: stored.append(value)
+            assert r.get_nowait("cold", lambda: "bg") is None
+            assert r.drain() and r.get_nowait("cold", lambda: "again") == "bg"
+            assert stored == ["bg"]
+        finally:
+            app.close()
 
     def test_drain_survives_a_refit_spawned_between_its_join_and_its_prune(self, monkeypatch):
         # The refit thread's join() spawns another refit once it has
@@ -217,50 +221,54 @@ def test_transfer_counts_only_copies_from_a_card():
 def test_metrics_request_trace_and_healthz_runtime():
     warm_carries.invalidate()
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
-    assert app.handle("/tpu/metrics")[0] == 200
-    trace = trace_ring.snapshot()[0]
-    assert (trace["route"], trace["status"], trace["device_gets"]) == ("/tpu/metrics", 200, 0)
+    try:
+        assert app.handle("/tpu/metrics")[0] == 200
+        trace = trace_ring.snapshot()[0]
+        assert (trace["route"], trace["status"], trace["device_gets"]) == ("/tpu/metrics", 200, 0)
 
-    def names(spans):
-        for s in spans:
-            yield s["name"], s["attrs"]
-            yield from names(s["children"])
+        def names(spans):
+            for s in spans:
+                yield s["name"], s["attrs"]
+                yield from names(s["children"])
 
-    spans = dict(names(trace["spans"]))
-    for name in ("page.data", "page.data.forecast", "refresh.fit", "forecast.history",
-                 "forecast.fit", "page.component", "render.html"):
-        assert name in spans, name
-    assert spans["forecast.fit"]["inference_path"] == "torch"
-    status, _, body = app.handle("/healthz")
-    health = json.loads(body)
-    assert trace_ring.snapshot()[0] == trace  # probes stay out of the ring
-    assert set(health) == {
-        "ok", "loading", "errors", "fetched_at", "nodes", "analytics", "runtime",
-        "last_sync_age_s", "consecutive_sync_failures", "background_sync",
-    } and health["ok"] is True
-    assert health["nodes"] == 2 and health["analytics"]["chosen_backend"] == "python"
-    assert health["background_sync"] is False and health["consecutive_sync_failures"] == 0
-    runtime = health["runtime"]
-    assert set(runtime) == {
-        "transfer", "fleet_cache", "warm_carries", "refresh", "device",
-        "watch", "background", "history", "graphs", "aot", "slo", "profiler", "push", "render",
-    }
-    assert set(runtime["slo"]["states"]) == {
-        "scrape_paint", "dashboard_render", "forecast_fit", "transport_connect", "data_freshness",
-    } and runtime["slo"]["budget_fit_error"] is None
-    assert runtime["profiler"]["running"] is False  # only serve() starts it
-    # Building an app never starts the registry: the fit ran eagerly.
-    assert runtime["aot"]["state"] == aot.registry().state
-    assert runtime["graphs"]["programs"]["forecast.fit_forecast_state_program"]["eager"] >= 1
-    assert runtime["history"]["scrapes"] == 1  # the metrics fetch was captured
-    assert runtime["device"] == {
-        "torch_device": "cpu", "kernel": "forecast_mlp_forward", "kernel_path": "torch",
-        "launches": ff.LAUNCHES.n, "build": None,
-    }
-    assert runtime["warm_carries"]["entries"] == 1
-    assert set(runtime["refresh"]) == {"metrics", "forecast"}
-    assert runtime["refresh"]["forecast"]["refits"] == 1
-    assert runtime["refresh"]["forecast"]["last_refit_error"] is None
+        spans = dict(names(trace["spans"]))
+        for name in ("page.data", "page.data.forecast", "refresh.fit", "forecast.history",
+                     "forecast.fit", "page.component", "render.html"):
+            assert name in spans, name
+        assert spans["forecast.fit"]["inference_path"] == "torch"
+        status, _, body = app.handle("/healthz")
+        health = json.loads(body)
+        assert trace_ring.snapshot()[0] == trace  # probes stay out of the ring
+        assert set(health) == {
+            "ok", "loading", "errors", "fetched_at", "nodes", "analytics", "runtime",
+            "last_sync_age_s", "consecutive_sync_failures", "background_sync",
+        } and health["ok"] is True
+        assert health["nodes"] == 2 and health["analytics"]["chosen_backend"] == "python"
+        assert health["background_sync"] is False and health["consecutive_sync_failures"] == 0
+        runtime = health["runtime"]
+        assert set(runtime) == {
+            "transfer", "fleet_cache", "warm_carries", "refresh", "device",
+            "watch", "background", "history", "graphs", "aot", "slo", "profiler", "push", "render",
+        }
+        assert set(runtime["slo"]["states"]) == {
+            "scrape_paint", "dashboard_render", "forecast_fit", "transport_connect",
+            "data_freshness",
+        } and runtime["slo"]["budget_fit_error"] is None
+        assert runtime["profiler"]["running"] is False  # only serve() starts it
+        # Building an app never starts the registry: the fit ran eagerly.
+        assert runtime["aot"]["state"] == aot.registry().state
+        assert runtime["graphs"]["programs"]["forecast.fit_forecast_state_program"]["eager"] >= 1
+        assert runtime["history"]["scrapes"] == 1  # the metrics fetch was captured
+        assert runtime["device"] == {
+            "torch_device": "cpu", "kernel": "forecast_mlp_forward", "kernel_path": "torch",
+            "launches": ff.LAUNCHES.n, "build": None,
+        }
+        assert runtime["warm_carries"]["entries"] == 1
+        assert set(runtime["refresh"]) == {"metrics", "forecast"}
+        assert runtime["refresh"]["forecast"]["refits"] == 1
+        assert runtime["refresh"]["forecast"]["last_refit_error"] is None
+    finally:
+        app.close()
 
 
 def _get(url):

@@ -96,14 +96,16 @@ def served():
             "jax": JaxApp(jax_demo_transport("v5e4"), min_sync_interval_s=0.0, clock=clock,
                           monotonic=lambda: mono[0]),
         }
-        out = {name: {"cold": (app.handle("/tpu/metrics"), _view(app))}
-               for name, app in apps.items()}
-        mono[0] += DashboardApp.FORECAST_TTL_S + 1
-        for name, app in apps.items():
-            stale = app.handle("/tpu/metrics")
-            assert app._forecast_refresher.drain()
-            out[name]["warm"] = (stale, _view(app))
-        apps["port"].close()
+        try:
+            out = {name: {"cold": (app.handle("/tpu/metrics"), _view(app))}
+                   for name, app in apps.items()}
+            mono[0] += DashboardApp.FORECAST_TTL_S + 1
+            for name, app in apps.items():
+                stale = app.handle("/tpu/metrics")
+                assert app._forecast_refresher.drain()
+                out[name]["warm"] = (stale, _view(app))
+        finally:
+            apps["port"].close()
         yield out
 
 
@@ -159,15 +161,21 @@ def test_warm_background_refit_matches_jax(served):
 
 def test_fresh_app_warm_starts_from_process_tier():
     warm_carries.invalidate()
-    first = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
-    assert first.handle("/tpu/metrics")[0] == 200 and len(warm_carries) == 1
-    second = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
-    assert second.handle("/tpu/metrics")[0] == 200
-    view = _view(second)
-    assert view.inference_path == "torch-warm" and view.carried_from_generation == 0
-    # The carry was taken by the second app's fit and its successor stored.
-    assert len(warm_carries) == 1 and warm_carries.counters()["hits"] >= 1
-    second.close()
+    # An app's close() drops the process's warm carries: the first app
+    # stays open until the second has taken its carry.
+    apps = [DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)]
+    try:
+        assert apps[0].handle("/tpu/metrics")[0] == 200 and len(warm_carries) == 1
+        apps.append(DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock))
+        second = apps[1]
+        assert second.handle("/tpu/metrics")[0] == 200
+        view = _view(second)
+        assert view.inference_path == "torch-warm" and view.carried_from_generation == 0
+        # The carry was taken by the second app's fit and its successor stored.
+        assert len(warm_carries) == 1 and warm_carries.counters()["hits"] >= 1
+    finally:
+        for app in reversed(apps):
+            app.close()
 
 
 def test_foreground_fit_error_is_a_500_naming_it(monkeypatch):
@@ -177,11 +185,14 @@ def test_foreground_fit_error_is_a_500_naming_it(monkeypatch):
     monkeypatch.setattr(tf, "_train", broken)
     warm_carries.invalidate()
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
-    status, ctype, body = app.handle("/tpu/metrics")
-    assert (status, ctype) == (500, "text/html")
-    assert "Internal error: RuntimeError: kernel launch failed" in body
-    refresh = json.loads(app.handle("/healthz")[2])["runtime"]["refresh"]["forecast"]
-    assert refresh["refit_errors"] == 1
+    try:
+        status, ctype, body = app.handle("/tpu/metrics")
+        assert (status, ctype) == (500, "text/html")
+        assert "Internal error: RuntimeError: kernel launch failed" in body
+        refresh = json.loads(app.handle("/healthz")[2])["runtime"]["refresh"]["forecast"]
+        assert refresh["refit_errors"] == 1
+    finally:
+        app.close()
 
 
 def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
@@ -189,23 +200,26 @@ def test_background_refit_error_is_counted_and_named_in_healthz(monkeypatch):
     mono = [0.0]
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock,
                        monotonic=lambda: mono[0])
-    assert app.handle("/tpu/metrics")[0] == 200
 
     def broken(*a, **k):
         raise RuntimeError("kernel launch failed")
 
-    monkeypatch.setattr(tf, "_train", broken)
-    mono[0] += app.FORECAST_TTL_S + 1
-    # The stale page still serves; the refit's error is absorbed, counted
-    # and named.
-    status, _, body = app.handle("/tpu/metrics")
-    assert status == 200 and "Utilization Forecast" in body
-    assert app._forecast_refresher.drain()
-    forecast = json.loads(app.handle("/healthz")[2])["runtime"]["refresh"]["forecast"]
-    assert forecast["refit_errors"] == 1
-    assert forecast["last_refit_error"] == "RuntimeError: kernel launch failed"
-    # The carry the failed refit took is back for the next attempt.
-    assert len(warm_carries) == 1
+    try:
+        assert app.handle("/tpu/metrics")[0] == 200
+        monkeypatch.setattr(tf, "_train", broken)
+        mono[0] += app.FORECAST_TTL_S + 1
+        # The stale page still serves; the refit's error is absorbed,
+        # counted and named.
+        status, _, body = app.handle("/tpu/metrics")
+        assert status == 200 and "Utilization Forecast" in body
+        assert app._forecast_refresher.drain()
+        forecast = json.loads(app.handle("/healthz")[2])["runtime"]["refresh"]["forecast"]
+        assert forecast["refit_errors"] == 1
+        assert forecast["last_refit_error"] == "RuntimeError: kernel launch failed"
+        # The carry the failed refit took is back for the next attempt.
+        assert len(warm_carries) == 1
+    finally:
+        app.close()
 
 
 @pytest.mark.parametrize("path", ["/intel/nodes", "/intel/metrics", "/intel"])
@@ -215,16 +229,18 @@ def test_intel_routes_are_served_as_jax_serves_them(path, monkeypatch):
     _pin_scrape_timer(monkeypatch)
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
     japp = JaxApp(jax_demo_transport("v5e4"), clock=clock)
-    status, ctype, body = app.handle(path)
-    jstatus, jctype, jbody = japp.handle(path)
-    assert (status, ctype) == (jstatus, jctype) == (200, "text/html")
-    assert body.split("<main>")[1] == jbody.split("<main>")[1]
-    assert app._route_label(path) == japp._route_label(path) == path
-    # The trend page is registered too: served, with its own route label.
-    status, ctype, body = app.handle("/tpu/trends")
-    assert (status, ctype) == (200, "text/html") and "History store" in body
-    assert app._route_label("/tpu/trends") == "/tpu/trends"
-    app.close()
+    try:
+        status, ctype, body = app.handle(path)
+        jstatus, jctype, jbody = japp.handle(path)
+        assert (status, ctype) == (jstatus, jctype) == (200, "text/html")
+        assert body.split("<main>")[1] == jbody.split("<main>")[1]
+        assert app._route_label(path) == japp._route_label(path) == path
+        # The trend page is registered too: served, with its own route label.
+        status, ctype, body = app.handle("/tpu/trends")
+        assert (status, ctype) == (200, "text/html") and "History store" in body
+        assert app._route_label("/tpu/trends") == "/tpu/trends"
+    finally:
+        app.close()
 
 
 def test_events_answer_an_event_stream_and_a_region_stream(monkeypatch):
@@ -256,15 +272,19 @@ def test_events_answer_an_event_stream_and_a_region_stream(monkeypatch):
 
 def test_refresh_bumps_the_epoch_and_redirects_only_to_routes():
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=clock)
-    assert app.handle("/refresh?back=/tpu/metrics") == (302, "/tpu/metrics", "")
-    for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1", "/gpu"):
-        assert app.handle(f"/refresh?back={back}") == (302, "/tpu", "")
-    assert app.handle("/refresh?back=/tpu/trends") == (302, "/tpu/trends", "")
-    # The Intel pages are routes now, as in JAX: /refresh returns to them.
-    japp = JaxApp(jax_demo_transport("v5e4"), clock=clock)
-    assert app.handle("/refresh?back=/intel") == japp.handle("/refresh?back=/intel") \
-        == (302, "/intel", "")
-    assert app._cache_epoch == 7
+    try:
+        assert app.handle("/refresh?back=/tpu/metrics") == (302, "/tpu/metrics", "")
+        for back in ("//evil.example", "http://evil.example/", "/tpu/metrics%0d%0aX:1",
+                     "/gpu"):
+            assert app.handle(f"/refresh?back={back}") == (302, "/tpu", "")
+        assert app.handle("/refresh?back=/tpu/trends") == (302, "/tpu/trends", "")
+        # The Intel pages are routes now, as in JAX: /refresh returns to them.
+        japp = JaxApp(jax_demo_transport("v5e4"), clock=clock)
+        assert app.handle("/refresh?back=/intel") == japp.handle("/refresh?back=/intel") \
+            == (302, "/intel", "")
+        assert app._cache_epoch == 7
+    finally:
+        app.close()
 
 
 def test_server_entry_point_needs_cuda_unless_asked_for_cpu(monkeypatch):

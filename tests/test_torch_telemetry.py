@@ -32,6 +32,7 @@ from headlamp_tpu_torch.obs import profiler as tprof
 from headlamp_tpu_torch.obs import slo as tslo
 from headlamp_tpu_torch.obs.trace import trace_ring
 from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
+from headlamp_tpu_torch.server import app as app_mod
 
 # The JAX package's obs namespace exports a function named profiler,
 # which shadows the module of that name as an attribute.
@@ -269,7 +270,13 @@ def engine():
         tslo.set_engine(previous)
 
 
-def test_metricsz_exemplars_name_traces_in_the_ring(engine):
+def test_metricsz_exemplars_name_traces_in_the_ring(engine, monkeypatch):
+    # A metrics registry of this test's own for the app and the engine:
+    # each bucket of the process-wide histogram keeps the latest exemplar
+    # of any earlier test, and the engine lists the 8 slowest buckets.
+    own = tmetrics.MetricRegistry()
+    monkeypatch.setattr(app_mod, "metrics_registry", own)
+    monkeypatch.setattr(tslo, "_metrics_registry", own)
     app = DashboardApp(make_demo_transport("v5e4"), device="cpu", clock=lambda: CLOCK)
     try:
         for path in ("/tpu", "/tpu/metrics", "/tpu/nodes", "/tpu/metrics"):

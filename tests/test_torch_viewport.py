@@ -28,6 +28,7 @@ from headlamp_tpu_torch.analytics import fleet_torch
 from headlamp_tpu_torch.context import AcceleratorDataContext
 from headlamp_tpu_torch.domain import accelerator as tacc
 from headlamp_tpu_torch.fleet import fixtures as tfx
+from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.obs.trace import trace_ring
 from headlamp_tpu_torch.server import DashboardApp
 from headlamp_tpu_torch.viewport import tree as ttree
@@ -49,10 +50,10 @@ def _states(fleet):
     jctx = JaxContext(
         jfx.fleet_transport(make(jfx)), providers=(jacc.TPU_PROVIDER,), clock=lambda: CLOCK
     )
-    tctx = AcceleratorDataContext(
+    with AcceleratorDataContext(
         tfx.fleet_transport(make(tfx)), device="cpu", clock=lambda: CLOCK
-    )
-    return jctx.sync().provider("tpu"), tctx.sync().provider("tpu")
+    ) as tctx:
+        return jctx.sync().provider("tpu"), tctx.sync().provider("tpu")
 
 
 def _jax_tree(state):
@@ -158,19 +159,21 @@ def test_tree_build_is_traced_with_its_source():
         tfx.fleet_transport(tfx.fleet_viewport(1024)), device="cpu", clock=lambda: CLOCK,
         min_sync_interval_s=3600.0,
     )
-    assert app.handle("/tpu/fleet")[0] == 200
-    found = []
-    stack = list(trace_ring.snapshot()[0]["spans"])
-    while stack:
-        node = stack.pop(0)
-        found += [node["attrs"]] if node["name"] == "analytics.region_rollup" else []
-        stack.extend(node["children"])
-    assert found == [{"nodes": 1024, "clusters": 8, "slices": 32, "source": "device",
-                      "fleet_cache": "miss"}]
-    # Later drill-downs of the generation read the memo: no new rollup.
-    assert app.handle("/tpu/fleet?region=cluster/1")[0] == 200
-    assert app._ctx.fleet_cache.counters() == {"hits": 0, "misses": 1, "uploads": 1}
-    app.close()
+    try:
+        assert app.handle("/tpu/fleet")[0] == 200
+        found = []
+        stack = list(trace_ring.snapshot()[0]["spans"])
+        while stack:
+            node = stack.pop(0)
+            found += [node["attrs"]] if node["name"] == "analytics.region_rollup" else []
+            stack.extend(node["children"])
+        assert found == [{"nodes": 1024, "clusters": 8, "slices": 32, "source": "device",
+                          "fleet_cache": "miss"}]
+        # Later drill-downs of the generation read the memo: no new rollup.
+        assert app.handle("/tpu/fleet?region=cluster/1")[0] == 200
+        assert app._ctx.fleet_cache.counters() == {"hits": 0, "misses": 1, "uploads": 1}
+    finally:
+        app.close()
 
 
 def test_device_rollup_error_propagates_to_a_500(monkeypatch):
@@ -178,6 +181,10 @@ def test_device_rollup_error_propagates_to_a_500(monkeypatch):
         raise RuntimeError("region rollup failed")
 
     monkeypatch.setattr(fleet_torch, "region_rollup_arrays", broken)
+    # A registry that never started: every rollup runs region_rollup_arrays.
+    # The process registry, once an earlier test started it, would find its
+    # captured program (which calls region_rollup) and never reach it.
+    monkeypatch.setattr(aot, "_REGISTRY", aot.AotProgramRegistry())
     _, tstate = _states("viewport256x4")
     with pytest.raises(RuntimeError, match="region rollup failed"):
         ttree.viewport_tree(tstate)
@@ -185,9 +192,11 @@ def test_device_rollup_error_propagates_to_a_500(monkeypatch):
         tfx.fleet_transport(tfx.fleet_viewport(256, clusters=4)), device="cpu",
         clock=lambda: CLOCK, min_sync_interval_s=3600.0,
     )
-    for path in ("/tpu/fleet", "/tpu/fleet?region=cluster/1"):  # never a host-computed page
-        status, ctype, body = app.handle(path)
-        assert (status, ctype) == (500, "text/html")
-        assert "Internal error: RuntimeError: region rollup failed" in body
-    assert app.handle("/tpu/nodes")[0] == 200  # pages without the tree serve
-    app.close()
+    try:
+        for path in ("/tpu/fleet", "/tpu/fleet?region=cluster/1"):  # never a host-computed page
+            status, ctype, body = app.handle(path)
+            assert (status, ctype) == (500, "text/html")
+            assert "Internal error: RuntimeError: region rollup failed" in body
+        assert app.handle("/tpu/nodes")[0] == 200  # pages without the tree serve
+    finally:
+        app.close()

@@ -114,12 +114,26 @@ def _once(response, feed):
     return respond
 
 
+#: The contexts the running test built; closed after it, pass or fail.
+_OPEN = []
+
+
+@pytest.fixture(autouse=True)
+def _close_contexts():
+    """Close every context a test built, so no node-track worker of the
+    port's outlives its test."""
+    yield
+    while _OPEN:
+        _OPEN.pop().close()
+
+
 def _contexts(fleet_name, *, watch):
     make = {"v5p32": ("fleet_v5p32", ()), "viewport": ("fleet_viewport", (256,))}[fleet_name]
     jt = jfx.fleet_transport(getattr(jfx, make[0])(*make[1]))
     tt = tfx.fleet_transport(getattr(tfx, make[0])(*make[1]))
     jctx = JaxContext(jt, clock=clock, watch=watch)
     tctx = AcceleratorDataContext(tt, device="cpu", clock=clock, watch=watch)
+    _OPEN.extend((jctx, tctx))
     return (jctx, jt), (tctx, tt)
 
 
@@ -237,6 +251,7 @@ def test_quiet_tick_keeps_the_snapshot_and_its_device_columns():
     tt = tfx.fleet_transport(tfx.fleet_viewport(256))
     mono = [1000.0]
     ctx = AcceleratorDataContext(tt, device="cpu", watch=True, clock=lambda: mono[0])
+    _OPEN.append(ctx)
     snap1 = ctx.sync()
     stats1 = snap1.provider("tpu").fleet_stats()
     uploads = ctx.fleet_cache.counters()["uploads"]
@@ -282,22 +297,24 @@ def test_pages_after_watch_events_match_the_jax_host():
                         clock=clock, min_sync_interval_s=0.0)
     jax = JaxApp(jfx.fleet_transport(jfx.fleet_viewport(256)), clock=clock,
                  min_sync_interval_s=0.0, fragments=False)
-    for app in (port, jax):
-        app._ctx.enable_watch()
-    ev = _events(tfx.fleet_viewport(256))
-    paths = ("/tpu", "/tpu/nodes?limit=10", "/tpu/fleet", "/tpu/fleet?region=cluster/2")
-    jax_device_cache.fleet_cache.invalidate()
-    before = {p: (port.handle(p), jax.handle(p)) for p in paths}
-    for app in (port, jax):
-        t = app._transport
-        t.node_feed.push("MODIFIED", copy.deepcopy(ev["node_mod"]))
-        t.pod_feed.push("ADDED", copy.deepcopy(ev["pod_add"]))
-    for path in paths:
+    try:
+        for app in (port, jax):
+            app._ctx.enable_watch()
+        ev = _events(tfx.fleet_viewport(256))
+        paths = ("/tpu", "/tpu/nodes?limit=10", "/tpu/fleet", "/tpu/fleet?region=cluster/2")
         jax_device_cache.fleet_cache.invalidate()
-        (ts, _, tbody), (js, _, jbody) = port.handle(path), jax.handle(path)
-        assert ts == js == 200 and _main(tbody) == _main(jbody), path
-        assert _main(tbody) != _main(before[path][0][2]) or path.endswith("cluster/2"), path
-    assert port._ctx.watch_stats["nodes"]["events"] == 1
-    assert port._ctx.watch_stats["pods"]["relists"] == 1
-    port.close()
+        before = {p: (port.handle(p), jax.handle(p)) for p in paths}
+        for app in (port, jax):
+            t = app._transport
+            t.node_feed.push("MODIFIED", copy.deepcopy(ev["node_mod"]))
+            t.pod_feed.push("ADDED", copy.deepcopy(ev["pod_add"]))
+        for path in paths:
+            jax_device_cache.fleet_cache.invalidate()
+            (ts, _, tbody), (js, _, jbody) = port.handle(path), jax.handle(path)
+            assert ts == js == 200 and _main(tbody) == _main(jbody), path
+            assert _main(tbody) != _main(before[path][0][2]) or path.endswith("cluster/2"), path
+        assert port._ctx.watch_stats["nodes"]["events"] == 1
+        assert port._ctx.watch_stats["pods"]["relists"] == 1
+    finally:
+        port.close()
     assert not [t for t in threading.enumerate() if t.name.startswith("hl-torch")]

@@ -58,8 +58,9 @@ def _snapshots(name):
     the Intel provider."""
     make = _fleet(name)
     jctx = JaxContext(jfx.fleet_transport(make(jfx)), clock=clock)
-    tctx = AcceleratorDataContext(tfx.fleet_transport(make(tfx)), device="cpu", clock=clock)
-    return jctx.sync(), tctx.sync()
+    with AcceleratorDataContext(tfx.fleet_transport(make(tfx)), device="cpu",
+                                clock=clock) as tctx:
+        return jctx.sync(), tctx.sync()
 
 
 def _columns(jsnap, tsnap, provider="tpu"):
