@@ -559,8 +559,12 @@ def build_region_rollup_shard(mesh: HostMesh, reducer: str, n_nodes_pad: int) ->
     tensor and reduced once."""
     reduce = _reducer(mesh, reducer)
 
-    def region_body(cap, alloc, ready, valid, cluster, slc, cluster_ext, slice_ext,
-                    req, phase, nidx, pvalid) -> tuple[torch.Tensor]:
+    def region_body(
+        cap: torch.Tensor, alloc: torch.Tensor, ready: torch.Tensor, valid: torch.Tensor,
+        cluster: torch.Tensor, slc: torch.Tensor, cluster_ext: torch.Tensor,
+        slice_ext: torch.Tensor, req: torch.Tensor, phase: torch.Tensor, nidx: torch.Tensor,
+        pvalid: torch.Tensor,
+    ) -> tuple[torch.Tensor]:
         local = local_region_aggregates(
             cap, alloc, ready, valid, cluster, slc, req, phase, nidx, pvalid,
             n_nodes_pad=n_nodes_pad, cluster_ext=cluster_ext, slice_ext=slice_ext,

@@ -315,13 +315,13 @@ class ScenarioContext:
     def close(self) -> None:
         """Close every app this context built, the replica first: each
         joins its refits and closes its live hub. An app whose close
-        raises leaves none of the others open; the first error
-        propagates."""
-        error: BaseException | None = None
+        raises an error leaves none of the others open; the first error
+        propagates. An interrupt propagates at once."""
+        error: Exception | None = None
         for app in reversed(self.apps):
             try:
                 app.close()
-            except BaseException as exc:  # noqa: BLE001 — re-raised below
+            except Exception as exc:  # noqa: BLE001 — re-raised below
                 error = error or exc
         if error is not None:
             raise error

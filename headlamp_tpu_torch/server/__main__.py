@@ -57,8 +57,8 @@ def _serve_until_interrupted(server: DashboardServer, banner: str) -> None:
     print(banner, flush=True)
     try:
         server.wait()
-    except KeyboardInterrupt:  # top of the process: a clean stop is the handling
-        pass
+    except KeyboardInterrupt:  # analysis: disable=EXC001
+        pass  # top of the process: a clean stop is the handling
     finally:
         server.close()
 

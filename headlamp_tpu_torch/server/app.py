@@ -1465,16 +1465,15 @@ class DashboardApp:
 
 
 class DashboardServer:
-    """A :class:`DashboardApp` serving on a socket, from a thread of its
-    own; :func:`serve` starts one."""
+    """A :class:`DashboardApp` serving on a socket, from the accept thread
+    :func:`serve` started."""
 
-    def __init__(self, app: DashboardApp, httpd: ThreadingHTTPServer) -> None:
+    def __init__(
+        self, app: DashboardApp, httpd: ThreadingHTTPServer, thread: threading.Thread
+    ) -> None:
         self.app = app
         self._httpd = httpd
-        self._thread = threading.Thread(
-            target=httpd.serve_forever, name="hl-torch-serve", daemon=True
-        )
-        self._thread.start()
+        self._thread = thread
 
     @property
     def url(self) -> str:
@@ -1671,4 +1670,6 @@ def serve(
     gateway = app.ensure_gateway()
     aot.registry().compile_startup(app.device)
     profiler().start()
-    return DashboardServer(app, httpd)
+    thread = threading.Thread(target=httpd.serve_forever, name="hl-torch-serve", daemon=True)
+    thread.start()
+    return DashboardServer(app, httpd, thread)

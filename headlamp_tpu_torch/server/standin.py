@@ -135,8 +135,8 @@ def main(argv: list[str] | None = None) -> None:
     print(f"stand-in apiserver for demo fleet '{args.demo}' on {server.url}", flush=True)
     try:
         server._thread.join()
-    except KeyboardInterrupt:  # top of the process: a clean stop is the handling
-        pass
+    except KeyboardInterrupt:  # analysis: disable=EXC001
+        pass  # top of the process: a clean stop is the handling
     finally:
         server.close()
 

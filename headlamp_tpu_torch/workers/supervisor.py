@@ -158,7 +158,7 @@ class WorkerSupervisor:
         try:
             while True:
                 time.sleep(3600)
-        except (KeyboardInterrupt, SystemExit):
+        except (KeyboardInterrupt, SystemExit):  # analysis: disable=EXC001
             pass  # the top of the process: stopping is the handling
 
     def stop(self) -> None:

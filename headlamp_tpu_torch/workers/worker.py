@@ -362,7 +362,7 @@ def worker_main(
         # The server's close() closes the app, which stops the consumer.
         try:
             server.wait()
-        except (KeyboardInterrupt, SystemExit):
+        except (KeyboardInterrupt, SystemExit):  # analysis: disable=EXC001
             pass  # the supervisor's stop: closing below is the handling
         finally:
             server.close()
