@@ -345,6 +345,27 @@ def span_totals(trace: dict[str, Any]) -> dict[str, float]:
     return totals
 
 
+def record_ticks(app: Any) -> list[dict[str, Any]]:
+    """Every background tick's trace from now on, quiet ticks too (the
+    trace ring keeps only the changed ones): each tick runs inside a
+    trace opened here, so the tick's own ``trace_request`` yields None
+    and its spans land in this one."""
+    from headlamp_tpu_torch.obs.trace import trace_request
+
+    ticks: list[dict[str, Any]] = []
+    run_tick = app._background_tick
+
+    def recorded_tick() -> None:
+        with trace_request("/sync") as trace:
+            run_tick()
+        if trace is not None:
+            trace.finish(route="/sync", status=0, device_gets=0)
+            ticks.append(trace.to_dict())
+
+    app._background_tick = recorded_tick
+    return ticks
+
+
 def profile_device(torch: Any, fn: Callable[[], Any]) -> tuple[float, int, list]:
     """(device-busy ms, device events, top five kernels by time) for one
     call of ``fn``, from torch.profiler's CUDA events. Kernels on one
@@ -1023,14 +1044,7 @@ def live_sync_phase(torch: Any, clock: Callable[[], float], smi: str, n: int) ->
     app = DashboardApp(transport, device="cuda", clock=clock, min_sync_interval_s=3600.0,
                        monotonic=lambda: mono[0])
     ctx, cache = app._ctx, app._ctx.fleet_cache
-    ticks: list[dict[str, Any]] = []
-    run_tick = app._background_tick
-
-    def recorded_tick() -> None:
-        run_tick()
-        ticks.append(app.last_tick_trace)
-
-    app._background_tick = recorded_tick  # every tick's trace, for its times
+    ticks = record_ticks(app)  # every tick's trace, for its times
 
     def lists(track: str) -> list[str]:
         return [c for c in transport.calls if c.startswith(f"/api/v1/{track}?limit=")]
@@ -3282,14 +3296,7 @@ def _replication_at_width(torch: Any, smi: str) -> dict[str, Any]:
             pub = BusPublisher(ledger=leader.ledger)
             leader.replication = pub
             leader.ensure_gateway(engine=lambda: engine)
-            ticks: list[dict[str, Any]] = []
-            run_tick = leader._background_tick
-
-            def recorded_tick() -> None:
-                run_tick()
-                ticks.append(leader.last_tick_trace)
-
-            leader._background_tick = recorded_tick
+            ticks = record_ticks(leader)
             server = leader.serve("127.0.0.1", 0)
 
             def publishing_tick(gen: int) -> dict[str, Any]:

@@ -40,6 +40,7 @@ from typing import Any, Callable, Mapping
 from ..device import DeviceLike, resolve_device
 from ..domain import objects as obj
 from ..domain.accelerator import PROVIDERS, FleetView, Provider, classify_fleet
+from ..obs.trace import span
 from ..runtime.device_cache import DeviceFleetCache, RollupResultCache
 from ..transport.api_proxy import DEFAULT_TIMEOUT_S, ApiError, Transport
 from ..transport.pool import fanout, pool_of
@@ -568,35 +569,39 @@ class AcceleratorDataContext:
         return self._cached_snapshot
 
     def _build_snapshot(self) -> ClusterSnapshot:
-        views = classify_fleet(self._all_nodes or [], self._all_pods or [], self._providers)
-        self._snapshot_generation += 1
-        providers: dict[str, ProviderState] = {}
-        for p in self._providers:
-            view = views[p.name]
-            view.version = self._snapshot_generation
-            # Merge imperative-track plugin pods not already present in
-            # the reactive list (UID dedup across tracks).
-            seen = {obj.uid(pod) for pod in view.plugin_pods}
-            for pod in self._fallback_plugin_pods.get(p.name, []):
-                if obj.uid(pod) not in seen:
-                    view.plugin_pods.append(pod)
-            providers[p.name] = ProviderState(
-                provider=p,
-                view=view,
-                workloads=list(self._workloads.get(p.name, [])),
-                workload_available=self._workload_available.get(p.name, True),
-                plugin_pods_error=self._plugin_pod_errors.get(p.name),
-                device=self._device,
-                fleet_cache=self.fleet_cache,
-                rollup_results=self.rollup_results,
-            )
+        nodes, pods = self._all_nodes or [], self._all_pods or []
+        with span("sync.build", nodes=len(nodes), pods=len(pods),
+                  generation=self._snapshot_generation + 1):
+            with span("sync.classify"):
+                views = classify_fleet(nodes, pods, self._providers)
+            self._snapshot_generation += 1
+            providers: dict[str, ProviderState] = {}
+            for p in self._providers:
+                view = views[p.name]
+                view.version = self._snapshot_generation
+                # Merge imperative-track plugin pods not already present in
+                # the reactive list (UID dedup across tracks).
+                seen = {obj.uid(pod) for pod in view.plugin_pods}
+                for pod in self._fallback_plugin_pods.get(p.name, []):
+                    if obj.uid(pod) not in seen:
+                        view.plugin_pods.append(pod)
+                providers[p.name] = ProviderState(
+                    provider=p,
+                    view=view,
+                    workloads=list(self._workloads.get(p.name, [])),
+                    workload_available=self._workload_available.get(p.name, True),
+                    plugin_pods_error=self._plugin_pod_errors.get(p.name),
+                    device=self._device,
+                    fleet_cache=self.fleet_cache,
+                    rollup_results=self.rollup_results,
+                )
 
-        errors = [e for e in (self._node_error, self._pod_error) if e]
-        return ClusterSnapshot(
-            all_nodes=self._all_nodes,
-            all_pods=self._all_pods,
-            providers=providers,
-            errors=errors,
-            fetched_at=self._clock(),
-            refresh_count=self._refresh_count,
-        )
+            errors = [e for e in (self._node_error, self._pod_error) if e]
+            return ClusterSnapshot(
+                all_nodes=self._all_nodes,
+                all_pods=self._all_pods,
+                providers=providers,
+                errors=errors,
+                fetched_at=self._clock(),
+                refresh_count=self._refresh_count,
+            )

@@ -5,8 +5,8 @@ bounded trace ring (``trace``), the metric registry behind
 (``slo``), the flight recorder (``flight``), the sampling profiler
 (``profiler``), the generation ledger (``ledger``), the graph cost
 ledger, which sorts each device program's runs into captures, replays
-and eager runs (``graphcost``), and the HTML debug pages
-(``debug_pages``)."""
+and eager runs (``graphcost``), the host process's collections and CPU
+as counters (``host``), and the HTML debug pages (``debug_pages``)."""
 
 from . import exemplars as _exemplars
 

@@ -14,9 +14,14 @@ and a background refit started with ``contextvars.copy_context`` (see
 ``runtime/refresh.py``) attaches its spans to the request that kicked
 it off.
 
-Span durations come from ``time.perf_counter``; each trace carries one
+Span durations come from ``time.perf_counter`` (``CLOCK_MONOTONIC`` on
+Linux, the clock ``time.monotonic`` reads); each trace carries one
 wall-clock ``started_at``, passed in through ``trace_request``'s
-``wall`` seam, for display only.
+``wall`` seam, for display only. Each span also stamps
+``time.thread_time`` at open and close: its ``cpu_ms`` is the CPU the
+opening thread spent inside it, so a span's CPU self time against its
+wall self time tells the stage's own work from its waits for the
+interpreter lock, a pool or the card.
 
 ``HEADLAMP_TPU_TRACING=0`` turns capture off at startup, as in JAX, and
 :func:`set_tracing` turns it on and off at run time (a benchmark's
@@ -51,17 +56,28 @@ def tracing_enabled() -> bool:
 
 
 class Span:
-    """One timed stage. ``t0``/``t1`` are perf_counter stamps; children
-    nest in call order. Written only by the context that opened it."""
+    """One timed stage. ``t0``/``t1`` are perf_counter stamps, ``c0``/``c1``
+    the opening thread's ``thread_time``; children nest in call order.
+    Written only by the context that opened it (and by the collector's
+    callback in ``obs/host.py``, on that context's thread)."""
 
-    __slots__ = ("name", "t0", "t1", "attrs", "children")
+    __slots__ = ("name", "t0", "t1", "c0", "c1", "attrs", "children")
 
     def __init__(self, name: str, attrs: dict[str, Any]) -> None:
         self.name = name
+        # Wall stamps outside the CPU stamps: on a single thread cpu_ms
+        # exceeds duration_ms by at most one step of the thread CPU
+        # clock, which ticks coarsely on some hosts (10 ms steps).
         self.t0 = time.perf_counter()
+        self.c0 = time.thread_time()
         self.t1: float | None = None
+        self.c1: float | None = None
         self.attrs = attrs
         self.children: list[Span] = []
+
+    def close(self) -> None:
+        self.c1 = time.thread_time()
+        self.t1 = time.perf_counter()
 
 
 #: The innermost open span of the calling context; None means no trace
@@ -103,7 +119,7 @@ class span:
         node = self._node
         if node is not None:
             _ACTIVE.reset(self._token)
-            node.t1 = time.perf_counter()
+            node.close()
             if exc_type is not None:
                 # The stage that failed is the one an operator reads
                 # the trace for.
@@ -119,6 +135,13 @@ def set_remote_parent(trace_id: str | None) -> None:
     trace = _TRACE.get()
     if trace is not None and trace_id:
         trace.remote_parent = trace_id
+
+
+def open_span() -> Span | None:
+    """The calling context's innermost open span, or None outside a
+    trace: for a hook that runs inside whatever stage is open (the
+    collector's callback in ``obs/host.py``)."""
+    return _ACTIVE.get()
 
 
 def annotate(**attrs: Any) -> None:
@@ -157,7 +180,7 @@ class Trace:
         self.status = status
         self.device_gets = device_gets
         if self.root.t1 is None:
-            self.root.t1 = time.perf_counter()
+            self.root.close()
 
     def to_dict(self) -> dict[str, Any]:
         t0 = self.root.t0
@@ -179,10 +202,12 @@ class Trace:
 
 def _span_dict(s: Span, t0: float) -> dict[str, Any]:
     end = s.t1 if s.t1 is not None else s.t0
+    cpu_end = s.c1 if s.c1 is not None else s.c0
     return {
         "name": s.name,
         "start_ms": round((s.t0 - t0) * 1000, 3),
         "duration_ms": round((end - s.t0) * 1000, 3),
+        "cpu_ms": round((cpu_end - s.c0) * 1000, 3),
         "attrs": dict(s.attrs),
         "children": [_span_dict(c, t0) for c in s.children],
     }
@@ -229,7 +254,7 @@ class trace_request:
         if trace is not None:
             _ACTIVE.reset(self._token)
             _TRACE.reset(self._trace_token)
-            trace.root.t1 = time.perf_counter()
+            trace.root.close()
         return False
 
 

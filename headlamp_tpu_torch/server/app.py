@@ -155,6 +155,7 @@ from ..models import aot
 from ..models.fused_forward import LAUNCHES, kernel_build_info
 from ..models.service import ForecastView, compute_forecast_incremental
 from ..obs import graphcost
+from ..obs import host as host_obs
 from ..obs import slo as slo_mod
 from ..obs.flight import flight_recorder, wide_event
 from ..obs.ledger import GenerationLedger
@@ -351,9 +352,6 @@ class DashboardApp:
         self._background_counters = {"ticks": 0, "warms": 0, "warm_errors": 0}
         self._last_warm_error: str | None = None
         self._warm_failing = False
-        #: The last background tick's trace (span tree), never ringed: a
-        #: quiet cluster's ticks would evict every page trace.
-        self.last_tick_trace: dict[str, Any] | None = None
         self._metrics_refresher = Refresher(
             "metrics", ttl_s=self.METRICS_TTL_S, grace_s=self.METRICS_GRACE_S,
             monotonic=monotonic,
@@ -424,6 +422,7 @@ class DashboardApp:
         #: or blocking metrics request on the card, 0 on a cached paint.
         self.last_request_device_gets = 0
         # Get-or-create: many apps in one process share the instruments.
+        host_obs.install()
         self._req_hist = metrics_registry.histogram(
             slo_mod.REQUEST_DURATION, slo_mod.REQUEST_DURATION_HELP, labels=("route",)
         )
@@ -523,9 +522,12 @@ class DashboardApp:
 
     def _background_tick(self) -> None:
         """One background sync: publish the snapshot, record it, warm its
-        fleet columns. Runs under a trace of its own that is kept as
-        ``last_tick_trace``, not in the ring."""
+        fleet columns. Runs under a trace of its own, route ``/sync``,
+        which lands in the trace ring when the tick built a new snapshot
+        generation or failed: a quiet cluster's ticks (counted in
+        /healthz ``runtime.background``) would evict every page trace."""
         status = 200
+        generation = self.snapshot_generation()
         with trace_request("/sync", wall=self._clock) as trace:
             try:
                 with span("sync.snapshot", source="background"), self._sync_lock:
@@ -545,9 +547,9 @@ class DashboardApp:
                 self._warm_device_cache(snap)
             with self._lock:
                 self._background_counters["ticks"] += 1
-        if trace is not None:
+        if trace is not None and (status != 200 or self.snapshot_generation() != generation):
             trace.finish(route="/sync", status=status, device_gets=0)
-            self.last_tick_trace = trace.to_dict()
+            trace_ring.record(trace.to_dict())
 
     def _warm_device_cache(self, snap: ClusterSnapshot) -> None:
         """Upload the TPU fleet's columns to the app's device as soon as a
@@ -621,8 +623,8 @@ class DashboardApp:
             )
             self._sync_fail_total.inc()
         if snap is not None:
-            # Its own span, so a background tick's trace (last_tick_trace)
-            # and an inline sync's request trace show the differ's share.
+            # Its own span, so a changed background tick's trace and an
+            # inline sync's request trace show the differ's share.
             with span("push.diff", generation=generation):
                 self.push.on_snapshot(
                     snap, generation=generation,

@@ -179,7 +179,10 @@ def _device_sums(
     view = state.view
     cache = state.fleet_cache
     fleet = cache.fleet_for(view) if cache is not None else encode_fleet(view.nodes, view.pods)
-    node_cluster, node_slice = _region_ids(fleet, cluster_id, slice_id, region_of, segments_limit)
+    with _span("viewport.region_ids"):
+        node_cluster, node_slice = _region_ids(
+            fleet, cluster_id, slice_id, region_of, segments_limit
+        )
     host = region_rollup_host(fleet, node_cluster, node_slice, state.device)
 
     def stats_at(prefix: str, idx: int) -> dict[str, int]:
@@ -246,62 +249,69 @@ def _build_tree(state: Any) -> ViewportTree:
 
     view = state.view
     nodes = state.nodes
-    region_of, clusters, slices, cluster_id, slice_id = _assignments(nodes)
-
-    source = "device" if len(nodes) >= DEVICE_ROLLUP_MIN_NODES else "host"
-    sums = _device_sums if source == "device" else _host_sums
     with _span(
-        "analytics.region_rollup", nodes=len(nodes), clusters=len(clusters), slices=len(slices)
-    ):
-        _annotate(source=source)
-        cluster_stats, slice_stats = sums(
-            state, cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS
-        )
-
-    members: dict[str, list[str]] = {}
-    for name, (ck, sk) in region_of.items():
-        members.setdefault(region_path(ck), []).append(name)
-        members.setdefault(region_path(ck, sk), []).append(name)
-    frozen_members = {path: tuple(sorted(names)) for path, names in members.items()}
-
-    cluster_regions: list[Region] = []
-    for ck in clusters:
-        child_regions = tuple(
-            Region(
-                path=region_path(ck, sk),
-                key=sk,
-                level="slice",
-                stats=slice_stats[slice_id[(ck, sk)]],
-            )
-            for ck2, sk in slices
-            if ck2 == ck
-        )
-        cluster_regions.append(
-            Region(
-                path=region_path(ck),
-                key=ck,
-                level="cluster",
-                stats=cluster_stats[cluster_id[ck]],
-                children=child_regions,
-            )
-        )
-
-    total = {key: 0 for key in STAT_KEYS}
-    for region in cluster_regions:
-        # Slice stats are exact per slice; the fleet total sums the SLICE
-        # rows so segment-limit aliasing never double-counts.
-        for child in region.children:
-            for key in STAT_KEYS:
-                total[key] += child.stats[key]
-
-    return ViewportTree(
+        "viewport.tree", nodes=len(nodes), pods=len(state.pods),
         generation=getattr(view, "version", None),
-        total=total,
-        clusters=tuple(cluster_regions),
-        region_of=region_of,
-        members=frozen_members,
-        source=source,
-    )
+    ):
+        with _span("viewport.assign"):
+            region_of, clusters, slices, cluster_id, slice_id = _assignments(nodes)
+
+        source = "device" if len(nodes) >= DEVICE_ROLLUP_MIN_NODES else "host"
+        sums = _device_sums if source == "device" else _host_sums
+        with _span(
+            "analytics.region_rollup", nodes=len(nodes), clusters=len(clusters),
+            slices=len(slices),
+        ):
+            _annotate(source=source)
+            cluster_stats, slice_stats = sums(
+                state, cluster_id, slice_id, region_of, REGION_CLUSTER_SEGMENTS
+            )
+
+        with _span("viewport.members"):
+            members: dict[str, list[str]] = {}
+            for name, (ck, sk) in region_of.items():
+                members.setdefault(region_path(ck), []).append(name)
+                members.setdefault(region_path(ck, sk), []).append(name)
+            frozen_members = {path: tuple(sorted(names)) for path, names in members.items()}
+
+            cluster_regions: list[Region] = []
+            for ck in clusters:
+                child_regions = tuple(
+                    Region(
+                        path=region_path(ck, sk),
+                        key=sk,
+                        level="slice",
+                        stats=slice_stats[slice_id[(ck, sk)]],
+                    )
+                    for ck2, sk in slices
+                    if ck2 == ck
+                )
+                cluster_regions.append(
+                    Region(
+                        path=region_path(ck),
+                        key=ck,
+                        level="cluster",
+                        stats=cluster_stats[cluster_id[ck]],
+                        children=child_regions,
+                    )
+                )
+
+            total = {key: 0 for key in STAT_KEYS}
+            for region in cluster_regions:
+                # Slice stats are exact per slice; the fleet total sums the SLICE
+                # rows so segment-limit aliasing never double-counts.
+                for child in region.children:
+                    for key in STAT_KEYS:
+                        total[key] += child.stats[key]
+
+            return ViewportTree(
+                generation=getattr(view, "version", None),
+                total=total,
+                clusters=tuple(cluster_regions),
+                region_of=region_of,
+                members=frozen_members,
+                source=source,
+            )
 
 
 def viewport_tree(state: Any) -> ViewportTree:

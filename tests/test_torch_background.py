@@ -76,6 +76,12 @@ def _span_names(trace):
     return names
 
 
+def _newest(route):
+    """The ring's newest trace of ``route``: with the loop live, a changed
+    tick's ``/sync`` trace may land after a request's."""
+    return next(t for t in trace_ring.snapshot() if t["route"] == route)
+
+
 def _viewport_app(n=256, **kw):
     t = tfx.fleet_transport(tfx.fleet_viewport(n))
     return DashboardApp(t, device="cpu", clock=clock, min_sync_interval_s=3600.0, **kw), t
@@ -90,7 +96,7 @@ def test_loop_syncs_with_watch_one_list_chain_per_track():
         assert _list_calls(t) == ["/api/v1/nodes?limit=500", "/api/v1/pods?limit=500"]
         assert app.handle("/tpu")[0] == 200
         assert len(_list_calls(t)) == 2  # the request read the published snapshot
-        assert trace_ring.snapshot()[0]["spans"][0]["attrs"]["source"] == "background"
+        assert _newest("/tpu")["spans"][0]["attrs"]["source"] == "background"
         health = json.loads(app.handle("/healthz")[2])
         assert health["background_sync"] and health["ok"]
         assert health["runtime"]["watch"]["nodes"]["relists"] == 1
@@ -137,10 +143,10 @@ def test_new_version_is_warmed_once_off_the_request_path():
         _wait(lambda: _ticks(app) == 1, "the hydrating tick")
         cache = app._ctx.fleet_cache
         assert app._background_counters["warms"] == 1 and cache.counters()["uploads"] == 1
-        assert "device_cache.upload" in _span_names(app.last_tick_trace)
+        assert "device_cache.upload" in _span_names(_newest("/sync"))
         for path in ("/tpu/fleet", "/tpu", "/tpu/fleet?region=cluster/1"):
             assert app.handle(path)[0] == 200
-            assert "device_cache.upload" not in _span_names(trace_ring.snapshot()[0]), path
+            assert "device_cache.upload" not in _span_names(_newest(app._route_label(path))), path
         assert cache.counters()["uploads"] == 1
         _tick(app)  # quiet: same version, nothing uploaded
         assert app._background_counters["warms"] == 1 and cache.counters()["uploads"] == 1
@@ -154,7 +160,7 @@ def test_new_version_is_warmed_once_off_the_request_path():
         assert new_view.version == view.version + 1
         assert app._background_counters["warms"] == 2 and cache.counters()["uploads"] == 2
         assert app.handle("/tpu/fleet")[0] == 200
-        assert "device_cache.upload" not in _span_names(trace_ring.snapshot()[0])
+        assert "device_cache.upload" not in _span_names(_newest("/tpu/fleet"))
         assert cache.snapshot()["entries"] == {"tpu": new_view.version}
         assert app._ctx.watch_stats["nodes"]["events"] == 1
         assert app._ctx.watch_stats["pods"]["events"] == 1

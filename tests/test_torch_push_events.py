@@ -29,6 +29,7 @@ from headlamp_tpu_torch.gateway.shed import ShedPolicy
 from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.obs import slo as tslo
 from headlamp_tpu_torch.obs.metrics import registry as metrics_registry
+from headlamp_tpu_torch.obs.trace import trace_ring
 from headlamp_tpu_torch.runtime.device_cache import warm_carries
 from headlamp_tpu_torch.server import DashboardApp, make_demo_transport
 
@@ -107,8 +108,11 @@ def test_the_sync_hook_baselines_skips_a_quiet_tick_and_diffs_a_bump():
         assert event["data"]["page"] == "/tpu/nodes" and list(event["data"]["rows"]) == [name]
         assert app.push.hub.poll(sub) is None  # region pages were not asked for
         # The differ's time is its own span of the tick's trace.
-        spans = {s["name"]: s for s in app.last_tick_trace["spans"]}
-        assert spans["push.diff"]["attrs"] == {"generation": generation + 1}
+        tick = trace_ring.snapshot()[0]
+        spans = {s["name"]: s for s in tick["spans"]}
+        attrs = spans["push.diff"]["attrs"]
+        attrs = {k: v for k, v in attrs.items() if k not in ("gc_full_ms", "gc_full")}
+        assert tick["route"] == "/sync" and attrs == {"generation": generation + 1}
         health = json.loads(app.handle("/healthz")[2])
         assert health["ok"] is True and health["runtime"]["push"]["diffs"] == 1
         ledger = app.ledger.snapshot()

@@ -35,6 +35,7 @@ from headlamp_tpu_torch.gateway.shed import ShedPolicy
 from headlamp_tpu_torch.models import aot
 from headlamp_tpu_torch.models.fused_forward import LAUNCHES
 from headlamp_tpu_torch.obs import slo as tslo
+from headlamp_tpu_torch.obs.trace import trace_ring
 from headlamp_tpu_torch.push import format_event
 from headlamp_tpu_torch.replicate import (
     BusConsumer,
@@ -405,13 +406,20 @@ def test_the_leaders_tick_trace_shows_the_publish_after_the_differ():
     try:
         app._ctx.enable_watch()
         app._background_tick()
-        names = [s["name"] for s in app.last_tick_trace["spans"]]
+        tick = trace_ring.snapshot()[0]
+        assert tick["route"] == "/sync"
+        names = [s["name"] for s in tick["spans"]]
         assert names.index("push.diff") < names.index("replicate.publish")
-        publish = next(s for s in app.last_tick_trace["spans"] if s["name"] == "replicate.publish")
-        assert publish["attrs"] == {"generation": app.snapshot_generation()}
-        publishing_trace = app.last_tick_trace["trace_id"]
+        publish = next(s for s in tick["spans"] if s["name"] == "replicate.publish")
+        attrs = {k: v for k, v in publish["attrs"].items() if k not in ("gc_full_ms", "gc_full")}
+        assert attrs == {"generation": app.snapshot_generation()}
+        publishing_trace = tick["trace_id"]
         app._background_tick()  # quiet: the same generation, rejected by the fence
         assert pub.published == 1 and pub.rejected_stale == 1
+        # A quiet tick records no trace.
+        assert [t["trace_id"] for t in trace_ring.snapshot() if t["route"] == "/sync"][0] == (
+            publishing_trace
+        )
         generations = {g["generation"]: g for g in app.ledger.snapshot()["generations"]}
         assert "published" in generations[app.snapshot_generation()]["stages"]
         # The record names the tick's trace as its publisher.
